@@ -1,0 +1,74 @@
+"""3D cost-volume regularization U-Nets; counterpart of
+``enerf_tpu/models/cost_reg.py`` (``CostRegNet``, ``MinCostRegNet``).
+
+Input: the variance volume (B, D, H, W, C) channels-last, read by the
+Conv3d stack as an NCDHW view with ``channels_last_3d`` strides (no copy).
+Encoder 8→16→32(→64), transposed-conv decoder with skip adds; two heads
+with bias=False: ``feat_conv`` (8ch feature volume) and ``depth_conv``
+(1ch depth logits). MinCostRegNet drops the deepest stage and serves
+cascade level 0.
+
+Returns (feature volume (B, D, H, W, 8) contiguous, depth logits
+(B, D, H, W)).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from enerf_tpu_torch.models.layers import ConvBnReLU3D, ConvTransposeBn
+
+
+def _heads(x, feat_conv, depth_conv):
+    feat = feat_conv(x).permute(0, 2, 3, 4, 1).contiguous()
+    return feat, depth_conv(x)[:, 0].contiguous()
+
+
+class CostRegNet(nn.Module):
+    def __init__(self, in_ch: int):
+        super().__init__()
+        self.conv0 = ConvBnReLU3D(in_ch, 8)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2)
+        self.conv2 = ConvBnReLU3D(16, 16)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2)
+        self.conv4 = ConvBnReLU3D(32, 32)
+        self.conv5 = ConvBnReLU3D(32, 64, stride=2)
+        self.conv6 = ConvBnReLU3D(64, 64)
+        self.conv7 = ConvTransposeBn(64, 32)
+        self.conv9 = ConvTransposeBn(32, 16)
+        self.conv11 = ConvTransposeBn(16, 8)
+        self.feat_conv = nn.Sequential(nn.Conv3d(8, 8, 3, padding=1, bias=False))
+        self.depth_conv = nn.Sequential(nn.Conv3d(8, 1, 3, padding=1, bias=False))
+
+    def forward(self, volume: torch.Tensor):
+        conv0 = self.conv0(volume.permute(0, 4, 1, 2, 3))
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = self.conv6(self.conv5(conv4))
+        x = conv4 + self.conv7(x)
+        x = conv2 + self.conv9(x)
+        x = conv0 + self.conv11(x)
+        return _heads(x, self.feat_conv, self.depth_conv)
+
+
+class MinCostRegNet(nn.Module):
+    def __init__(self, in_ch: int):
+        super().__init__()
+        self.conv0 = ConvBnReLU3D(in_ch, 8)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2)
+        self.conv2 = ConvBnReLU3D(16, 16)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2)
+        self.conv4 = ConvBnReLU3D(32, 32)
+        self.conv9 = ConvTransposeBn(32, 16)
+        self.conv11 = ConvTransposeBn(16, 8)
+        self.feat_conv = nn.Sequential(nn.Conv3d(8, 8, 3, padding=1, bias=False))
+        self.depth_conv = nn.Sequential(nn.Conv3d(8, 1, 3, padding=1, bias=False))
+
+    def forward(self, volume: torch.Tensor):
+        conv0 = self.conv0(volume.permute(0, 4, 1, 2, 3))
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = conv2 + self.conv9(conv4)
+        x = conv0 + self.conv11(x)
+        return _heads(x, self.feat_conv, self.depth_conv)

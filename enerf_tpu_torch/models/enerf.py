@@ -1,0 +1,154 @@
+"""Cascade ENeRF network, eval forward; counterpart of
+``enerf_tpu/models/enerf.py`` (``ENeRF.__call__`` in eval mode).
+
+Per cascade level: variance cost volume (plane sweep over the source
+features; CUDA kernel ``ops/kernels/cost_volume.py``) → 3D CNN → softmax
+depth regression → depth-guided rays with n samples → IBR shading and
+alpha compositing (CUDA kernel ``ops/kernels/render.py``). Padded source
+views carry ``view_mask = 0``. Module names follow the reference state
+dict (``feature_net``, ``cost_reg_{i}``, ``nerf_{i}``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from enerf_tpu_torch.config import ENeRFConfig
+from enerf_tpu_torch.models.cost_reg import CostRegNet, MinCostRegNet
+from enerf_tpu_torch.models.feature_net import FeatureNet
+from enerf_tpu_torch.models.layers import init_weights
+from enerf_tpu_torch.models.nerf_head import NeRFHead
+from enerf_tpu_torch.ops.camera import get_proj_mats
+from enerf_tpu_torch.ops.depth import (
+    cascade_depth_values,
+    depth_regression,
+    init_depth_values,
+)
+from enerf_tpu_torch.ops.ibr import unpreprocess
+from enerf_tpu_torch.ops.kernels.render import render_rays
+from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
+from enerf_tpu_torch.ops.sampling import resize_bilinear, scale_size
+from enerf_tpu_torch.ops.warp import build_cost_volume
+
+# FPN output channels by feature level (level_0 = 1/4 res, level_2 = full)
+FEAT_CH = {0: 32, 1: 16, 2: 8}
+
+StageHook = Optional[Callable[[str], None]]
+
+
+class ENeRF(nn.Module):
+    def __init__(self, cfg: ENeRFConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        cas = cfg.cas_config
+        self.feature_net = FeatureNet()
+        for i in range(cas.num):
+            reg_cls = MinCostRegNet if i == 0 else CostRegNet
+            self.add_module(f"cost_reg_{i}", reg_cls(FEAT_CH[i]))
+            self.add_module(f"nerf_{i}", NeRFHead(
+                feat_ch=cas.nerf_model_feat_ch[i] + 3,
+                viewdir_agg=cfg.viewdir_agg))
+        init_weights(self, generator)
+        for i in range(cas.num):
+            init_weights(getattr(self, f"nerf_{i}"), generator,
+                         kaiming_linear=True)
+
+    def forward_feat(self, src_inps: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """FPN features for all source views, NHWC per level."""
+        B, S, H, W, C = src_inps.shape
+        feat2, feat1, feat0 = self.feature_net(src_inps.reshape(B * S, H, W, C))
+        return {
+            "level_2": feat0.reshape(B, S, H, W, feat0.shape[-1]),
+            "level_1": feat1.reshape(B, S, H // 2, W // 2, feat1.shape[-1]),
+            "level_0": feat2.reshape(B, S, H // 4, W // 4, feat2.shape[-1]),
+        }
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                stage_hook: StageHook = None) -> Dict[str, torch.Tensor]:
+        """Eval forward. ``stage_hook(name)``, when given, is called right
+        after each stage is enqueued (``feature_net``, ``cost_volume_{i}``,
+        ``cost_reg_{i}``, ``depth_{i}``, ``render_{i}``) — a timer records a
+        CUDA event there."""
+        hook = stage_hook or (lambda name: None)
+        cas = self.cfg.cas_config
+        feats = self.forward_feat(batch["src_inps"])
+        hook("feature_net")
+        view_mask = batch.get("view_mask")
+        H_O, W_O = batch["src_inps"].shape[2:4]
+
+        ret: Dict[str, torch.Tensor] = {}
+        depth = std = near_far = None
+        for i in range(cas.num):
+            D = cas.volume_planes[i]
+            if depth is None:
+                depth_values, near_far = init_depth_values(
+                    batch["near_far"], D,
+                    scale_size(H_O, cas.volume_scale[i]),
+                    scale_size(W_O, cas.volume_scale[i]), cas.depth_inv[i])
+            else:
+                depth_values, near_far = cascade_depth_values(
+                    depth, std, near_far, D,
+                    depth_inv_prev=cas.depth_inv[i - 1],
+                    depth_inv_cur=cas.depth_inv[i],
+                    up_scale=cas.volume_scale[i] / cas.volume_scale[i - 1])
+            projs = get_proj_mats(batch["src_exts"], batch["src_ixts"],
+                                  batch["tar_ext"], batch["tar_ixt"],
+                                  src_scale=cas.im_feat_scale[i],
+                                  tar_scale=cas.volume_scale[i])
+            volume = build_cost_volume(feats[f"level_{i}"], projs,
+                                       depth_values, view_mask)
+            hook(f"cost_volume_{i}")
+            feat_volume, depth_logits = getattr(self, f"cost_reg_{i}")(volume)
+            hook(f"cost_reg_{i}")
+            depth, std = depth_regression(depth_logits, depth_values,
+                                          cas.depth_inv[i])
+            hook(f"depth_{i}")
+            if not cas.render_if[i]:
+                continue
+            ret_i = self._render_stage(i, depth, std, near_far, feat_volume,
+                                       feats, batch, view_mask)
+            hook(f"render_{i}")
+            ret_i["depth_mvs"] = (1.0 / depth) if cas.depth_inv[i] else depth
+            ret_i["std"] = std
+            ret.update({f"{k}_level{i}": v for k, v in ret_i.items()})
+        return ret
+
+    def _render_stage(self, level, depth, std, near_far, feat_volume, feats,
+                      batch, view_mask) -> Dict[str, torch.Tensor]:
+        """Depth-guided rays, then IBR shading + compositing of one level."""
+        cas = self.cfg.cas_config
+        grid = self.cfg.grid_rays
+        rays = build_rays(batch[f"rays_{level}"], depth, std, near_far,
+                          depth_inv=cas.depth_inv[level],
+                          up_scale=cas.render_scale[level] / cas.volume_scale[level],
+                          grid=grid)
+        world_xyz, uvd, z_vals = sample_along_depth(
+            rays, n_samples=cas.num_samples[level],
+            depth_inv=cas.depth_inv[level])
+
+        src_inps = batch["src_inps"]
+        rgbs = unpreprocess(src_inps, render_scale=cas.render_scale[level])
+        im_feat = feats[f"level_{cas.render_im_feat_level[level]}"]
+        up_feat_scale = cas.render_scale[level] / cas.im_ibr_scale[level]
+        if up_feat_scale != 1.0:
+            h, w = im_feat.shape[2:4]
+            im_feat = resize_bilinear(im_feat, (scale_size(h, up_feat_scale),
+                                                scale_size(w, up_feat_scale)))
+        img_feat_rgb = torch.cat([im_feat, rgbs], dim=-1)
+
+        H_O, W_O = src_inps.shape[2:4]
+        H = int(H_O * cas.render_scale[level])
+        W = int(W_O * cas.render_scale[level])
+        norm = torch.tensor([1.0 / (W - 1), 1.0 / (H - 1), 1.0],
+                            dtype=uvd.dtype, device=uvd.device)
+        return render_rays(
+            world_xyz, uvd * norm, z_vals, img_feat_rgb, feat_volume,
+            batch["src_exts"], batch["src_ixts"], batch["tar_ext"], view_mask,
+            getattr(self, f"nerf_{level}"),
+            render_scale=cas.render_scale[level],
+            white_bkgd=self.cfg.white_bkgd,
+            grid_hw=(H, W) if grid else None)

@@ -1,0 +1,91 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+Each test skips without a CUDA device (a hand-written kernel has no CPU
+mode). This file imports neither JAX nor the JAX package, so on a machine
+with a GPU and no JAX it runs alone:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+
+Inputs are seeded and small; tolerances as ``chip_smoke.py`` states them
+(f32 with TF32 off; the kernels sum in another order than the plain
+versions)."""
+
+import pytest
+import torch
+
+from enerf_tpu_torch.config import dtu_eval_config
+from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+from enerf_tpu_torch.models.layers import init_weights
+from enerf_tpu_torch.models.nerf_head import NeRFHead
+from enerf_tpu_torch.ops.camera import get_proj_mats
+from enerf_tpu_torch.ops.depth import init_depth_values
+from enerf_tpu_torch.ops.ibr import unpreprocess
+from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+from enerf_tpu_torch.ops.kernels import render as krender
+from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
+
+H, W = 64, 96
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _batch(n_src, device):
+    b = make_synthetic_batch(dtu_eval_config(), H=H, W=W, n_src=n_src)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,n_src", [(0, 3), (1, 3), (1, 2)])
+def test_cost_volume_kernel_matches_plain(cuda, level, n_src):
+    g = torch.Generator().manual_seed(level)
+    b = _batch(n_src, cuda)
+    C, s, vs, D = ((32, 0.25, 0.125, 48), (16, 0.5, 0.5, 8))[level]
+    feats = torch.randn(1, 3, int(H * s), int(W * s), C, generator=g).to(cuda)
+    projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
+                          b["tar_ixt"], src_scale=s, tar_scale=vs)
+    dv, _ = init_depth_values(b["near_far"], D, int(H * vs), int(W * vs),
+                              level == 0)
+    args = (feats, projs, dv, b["view_mask"])
+    before = kcv.launches
+    out = kcv.fused_cost_volume(*args)
+    assert kcv.launches == before + 1
+    torch.testing.assert_close(out, kcv.cost_volume_plain(*args), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_src", [3, 2])
+def test_render_kernel_matches_plain(cuda, n_src):
+    g = torch.Generator().manual_seed(n_src)
+    b = _batch(n_src, cuda)
+    head = NeRFHead(11)
+    init_weights(head, g, kaiming_linear=True)
+    head = head.eval().to(cuda)
+    Hv, Wv = H // 2, W // 2
+    depth = (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)).to(cuda)
+    std = (0.05 + 0.2 * torch.rand(1, Hv, Wv, generator=g)).to(cuda)
+    nf = torch.stack([torch.full((1, Hv, Wv), 2.8),
+                      torch.full((1, Hv, Wv), 5.0)], 1).to(cuda)
+    rays = build_rays(b["rays_1"], depth, std, nf, False, 2.0, grid=True)
+    xyz, uvd, z = sample_along_depth(rays, 2, False)
+    uvd = uvd * torch.tensor([1 / (W - 1), 1 / (H - 1), 1.0], device=cuda)
+    img = torch.cat([torch.randn(1, 3, H, W, 8, generator=g).to(cuda),
+                     unpreprocess(b["src_inps"])], -1).contiguous()
+    vol = torch.randn(1, 8, Hv, Wv, 8, generator=g).to(cuda)
+    args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"], b["tar_ext"],
+            b["view_mask"], head)
+    kw = dict(render_scale=1.0, grid_hw=(H, W))
+    with torch.no_grad():
+        before = krender.launches
+        out = krender.render_rays(*args, **kw)
+        assert krender.launches == before + 1
+        plain = krender.render_rays_plain(*args, **kw)
+    for k in ("rgb", "depth", "weights"):
+        torch.testing.assert_close(out[k], plain[k], rtol=1e-4, atol=2e-4)
