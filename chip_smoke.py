@@ -17,6 +17,18 @@ Phases, each printing one JSON line:
            path on the card, and the card vs the CPU on a small frame
   profile  torch.profiler over two frames: device busy time, idle share,
            the kernels that take the most device time
+  k4       the depth-regression kernel vs its plain version, forward and
+           gradient, at the train shapes of both cascade levels and the
+           eval level-0 shape
+  train    the train step of ``tools/bench_train.py``'s workload (512x640,
+           3 source views, volume planes (64, 8), both levels rendering
+           the full image on grid rays, MSE, Adam, seeded random weights)
+           through ``build_model(train=True)`` / ``make_train_step``: step
+           times and their forward / backward / optimizer split, peak
+           memory, the loss of every step, kernel launch counts; one step
+           with seeded random VGG16 weights (the perceptual term); a
+           128x160 step on the card vs the same step on the CPU
+  train_profile  torch.profiler over two train steps
 then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 the last line. Float32 throughout, TF32 off.
@@ -48,6 +60,19 @@ K2_TOL = dict(rtol=1e-4, atol=2e-4)
 E2E_ATOL = {"rgb_level1": 3e-4, "weights_level1": 3e-4, "depth_level1": 3e-3,
             "depth_mvs_level1": 3e-3, "std_level1": 3e-3}
 E2E_RTOL = 1e-3
+# K4: the kernel sums Σe·v / Σe in plane order, the plain version
+# softmax-then-sum in torch's reduction order (f32, 8-64 terms)
+K4_TOL = dict(rtol=1e-4, atol=1e-6)
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10      # timed steps of the train main path
+# the card vs the CPU on a small train step: f32 with TF32 off on both, but
+# cuDNN's and the CPU's convolutions and the reductions sum in other orders.
+# 128x160, not smaller: at 64x96 the gradient of the first FPN layer's BN
+# scale is a sum over few pixels that cancels so far that f32 rounding
+# alone (on the CPU as on the card) can turn it by more than the limit.
+TRAIN_SMALL_HW = (128, 160)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_COS = 0.999
 
 
 def fail(msg: str) -> None:
@@ -279,17 +304,22 @@ def plain_path():
     """The same forward with each kernel wrapper swapped for its plain
     version (for the on-card comparison only)."""
     import enerf_tpu_torch.models.enerf as enerf_mod
+    import enerf_tpu_torch.ops.depth as depth_mod
     import enerf_tpu_torch.ops.warp as warp_mod
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
-    saved = warp_mod.fused_cost_volume, enerf_mod.render_rays
+    saved = (warp_mod.fused_cost_volume, enerf_mod.render_rays,
+             depth_mod.kernel_depth_regression)
     warp_mod.fused_cost_volume = kcv.cost_volume_plain
     enerf_mod.render_rays = krender.render_rays_plain
+    depth_mod.kernel_depth_regression = kdr.depth_regression_plain
     try:
         yield
     finally:
-        warp_mod.fused_cost_volume, enerf_mod.render_rays = saved
+        (warp_mod.fused_cost_volume, enerf_mod.render_rays,
+         depth_mod.kernel_depth_regression) = saved
 
 
 def randomize_bn_stats(torch, model, seed):
@@ -309,6 +339,7 @@ def phase_frames(torch, cfg):
     import enerf_tpu_torch as et
     from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     model = et.build_model(cfg, seed=0)          # on the GPU
@@ -328,12 +359,15 @@ def phase_frames(torch, cfg):
         return out, frame_ms, {k: statistics.median(st[k] for st in stages)
                                for k in stages[0]}
 
-    kcv.launches = krender.launches = 0
+    kcv.launches = krender.launches = kdr.launches = 0
     out, first_ms, _ = frames(N_FRAMES)
-    launches = {"cost_volume": kcv.launches, "render": krender.launches}
-    if launches != {"cost_volume": 2 * N_FRAMES, "render": N_FRAMES}:
+    launches = {"cost_volume": kcv.launches, "render": krender.launches,
+                "depth_regression": kdr.launches}
+    expect_launches = {"cost_volume": 2 * N_FRAMES, "render": N_FRAMES,
+                       "depth_regression": 2 * N_FRAMES}
+    if launches != expect_launches:
         fail(f"kernel launches on the main path {launches}, expected "
-             f"cost_volume {2 * N_FRAMES} and render {N_FRAMES}")
+             f"{expect_launches}")
     shapes = {k: list(v.shape) for k, v in out.items()}
     expect = {"rgb_level1": [1, H * W, 3], "depth_level1": [1, H * W],
               "weights_level1": [1, H * W, 2],
@@ -376,15 +410,23 @@ def phase_frames(torch, cfg):
 
 def phase_profile(torch, model, batch, frames: int = 2) -> None:
     """Device kernel time by name and the device's idle share over
-    ``frames`` frames, from torch.profiler's CUDA trace."""
+    ``frames`` frames."""
     import enerf_tpu_torch as et
+
+    profile_device(torch, "profile", lambda: et.render(model, batch), frames,
+                   "frame")
+
+
+def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
+    """Device kernel time by name and the device's idle share over ``n``
+    calls of ``run_once``, from torch.profiler's CUDA trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            et.render(model, batch)
+        for _ in range(n):
+            run_once()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -394,15 +436,234 @@ def phase_profile(torch, model, batch, frames: int = 2) -> None:
             - min(e.time_range.start for e in kernels)) / 1e3
     by_name = {}
     for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        ms, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    emit("profile", frames=frames, device_busy_ms_per_frame=busy / frames,
-         device_span_ms_per_frame=span / frames, idle_share=1 - busy / span,
-         top_kernels=[{"name": name[:90], "ms_per_frame": ms / frames,
-                       "launches_per_frame": n / frames}
-                      for name, (ms, n) in top])
+    emit(phase, **{f"{unit}s": n, f"device_busy_ms_per_{unit}": busy / n,
+                   f"device_span_ms_per_{unit}": span / n,
+                   "idle_share": 1 - busy / span,
+                   f"kernel_launches_per_{unit}": len(kernels) / n,
+                   "top_kernels": [{"name": name[:90],
+                                    f"ms_per_{unit}": ms / n,
+                                    f"launches_per_{unit}": k / n}
+                                   for name, (ms, k) in top]})
 
+
+def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20) -> float:
+    """Mean device time of the kernel named ``kernel_name`` over ``n`` calls
+    of ``fn``, from torch.profiler's CUDA trace: the kernel alone, without
+    the host time of its wrapper that CUDA events around a call include."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+    if len(times) != n:
+        fail(f"the profiler saw {len(times)} launches of {kernel_name}, "
+             f"expected {n}")
+    return statistics.mean(times)
+
+
+def phase_k4(torch, cfg):
+    """Depth-regression kernel vs plain, forward and gradient, at the
+    train shapes of both levels and the eval level-0 shape."""
+    from enerf_tpu_torch.ops.depth import init_depth_values
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+
+    g = torch.Generator().manual_seed(4)
+    near_far = torch.tensor([[2.5, 5.5]])
+    cases = []
+    for name, (D, Hv, Wv), inv in (
+            ("train_level0", (64, H // 8, W // 8), True),
+            ("train_level1", (8, H // 2, W // 2), False),
+            ("eval_level0", (48, H // 8, W // 8), True)):
+        logits = (2.0 * torch.randn(1, D, Hv, Wv, generator=g)).cuda()
+        if inv:        # level 0: planes uniform in disparity, every pixel
+            values, _ = init_depth_values(near_far, D, Hv, Wv, True)
+        else:          # level 1: per-pixel planes in a band around a surface
+            near = 3.0 + 0.6 * torch.rand(1, 1, Hv, Wv, generator=g)
+            band = 0.05 + 0.4 * torch.rand(1, 1, Hv, Wv, generator=g)
+            lin = torch.linspace(0, 1, D)[None, :, None, None]
+            values = (near + lin * band).contiguous()
+        values = values.cuda()
+        plain = kdr.depth_regression_plain(logits, values, inv)
+        out = kdr.depth_regression(logits, values, inv)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, o, p, what=f"k4 {name} {k}", **K4_TOL)
+                  for k, o, p in zip(("depth", "std"), out, plain))
+        # gradient: the Function's backward vs autograd of the plain version
+        gd = torch.randn(1, Hv, Wv, generator=g).cuda()
+        gs = torch.randn(1, Hv, Wv, generator=g).cuda()
+        grads = []
+        for fn in (kdr.depth_regression, kdr.depth_regression_plain):
+            lt = logits.clone().requires_grad_()
+            vt = values.clone().requires_grad_()
+            d, sd = fn(lt, vt, inv)
+            grads.append(torch.autograd.grad((d, sd), (lt, vt), (gd, gs)))
+        grad_err = max(max_err(torch, a, b, what=f"k4 {name} grad {k}",
+                               **K4_TOL)
+                       for k, a, b in zip(("logits", "values"), *grads))
+        t_k = time_ms(torch, lambda: kdr.depth_regression(logits, values, inv),
+                      reps=50, warmup=5)
+        dev_ms = device_kernel_ms(
+            torch, lambda: kdr.depth_regression(logits, values, inv),
+            "depth_regression_kernel")
+        t_p = time_ms(torch, lambda: kdr.depth_regression_plain(
+            logits, values, inv), reps=50, warmup=5)
+        io = nbytes(logits, values, *out)
+        # per plane: exp twice, compare, 2 FMA and 3 more for the moment
+        flops = logits.numel() * (10 + (2 if inv else 0))
+        bd, by = bound_ms(io, flops)
+        case = dict(case=name, shape=list(logits.shape), depth_inv=inv,
+                    max_abs_err=err, grad_max_abs_err=grad_err, tol=K4_TOL,
+                    ms=t_k, device_ms=dev_ms, plain_ms=t_p, bound_ms=bd,
+                    bound_by=by, bytes=io, flops=flops)
+        emit("k4", **case)
+        cases.append(case)
+    return cases
+
+
+def bench_train_config():
+    """``tools/bench_train.py``'s workload in the port's config."""
+    from enerf_tpu_torch.config import CascadeConfig, Config, ENeRFConfig
+
+    return Config(enerf=ENeRFConfig(
+        test_input_views=3, train_input_views=(2, 3), grid_rays=True,
+        cas_config=CascadeConfig(num=2, volume_planes=(64, 8))))
+
+
+def grad_cosines(torch, model_a, model_b):
+    """Per-parameter cosine of two models' gradients; a parameter whose
+    gradient in ``model_b`` is 0 but for rounding (below 1e-7) must have
+    one below 1e-6 in ``model_a``."""
+    grads_b = dict(model_b.named_parameters())
+    out = {}
+    for k, p in model_a.named_parameters():
+        a, b = p.grad, grads_b[k].grad
+        if b is None or float(b.abs().max()) < 1e-7:
+            if a is not None and float(a.abs().max()) >= 1e-6:
+                fail(f"gradient of {k}: {float(a.abs().max())} on the card, "
+                     "none on the CPU")
+            continue
+        if a is None:
+            fail(f"gradient of {k}: none on the card")
+        a, b = a.double().cpu().ravel(), b.double().cpu().ravel()
+        out[k] = float(a @ b / (a.norm() * b.norm()))
+    return out
+
+
+def phase_train(torch):
+    """The train main path: ``TRAIN_WARMUP`` + ``TRAIN_STEPS`` steps at
+    512x640 with the launch counts reset just before and read just after;
+    then a step with the VGG perceptual term, and a small step on the card
+    vs the CPU."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import render as krender
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+    from enerf_tpu_torch.train.vgg import VGG16Blocks
+
+    cfg = bench_train_config()
+    model = et.build_model(cfg, seed=0, train=True)        # on the GPU
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, (H, W))
+    batch_np = make_synthetic_batch(cfg, H=H, W=W, split="train")
+    batch_np.pop("tar_img")
+    batch = et.to_device(batch_np, "cuda")
+    params0 = [p.detach().clone() for p in model.parameters()]
+    timer = StageTimer(torch)   # at the step's phase_hook
+    n = TRAIN_WARMUP + TRAIN_STEPS
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kcv.launches = krender.launches = kdr.launches = 0
+    losses, step_ms, phases = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        timer.start()
+        state, stats = step(state, batch, phase_hook=timer)
+        losses.append({k: float(v) for k, v in stats.items()})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        phases.append(timer.stages_ms())
+    launches = {"cost_volume": kcv.launches, "render": krender.launches,
+                "depth_regression": kdr.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # training runs the plain, differentiable cost volume and render stage
+    # and the depth-regression kernel (plain-recompute backward)
+    expect = {"cost_volume": 0, "render": 0, "depth_regression": 2 * n}
+    if launches != expect:
+        fail(f"kernel launches on the train path {launches}, expected {expect}")
+    for i, st in enumerate(losses):
+        if not all(map(lambda v: v == v and abs(v) != float("inf"),
+                       st.values())):
+            fail(f"train step {i}: non-finite stats {st}")
+    moved = max(float((p.detach() - p0).abs().max())
+                for p, p0 in zip(model.parameters(), params0))
+    if not moved > 0:
+        fail("the train steps changed no parameter")
+    timed = phases[TRAIN_WARMUP:]
+    emit("train", H=H, W=W, steps=n, warmup=TRAIN_WARMUP,
+         launches=launches,
+         launches_per_step={k: v / n for k, v in launches.items()},
+         step_ms=step_ms, median_step_ms=statistics.median(step_ms[TRAIN_WARMUP:]),
+         median_phase_ms={k: statistics.median(p[k] for p in timed)
+                          for k in timed[0]},
+         peak_mem_gb=peak_gb, loss=[st["loss"] for st in losses],
+         last_stats=losses[-1], max_param_change=moved,
+         lr=state.optimizer.param_groups[0]["lr"])
+
+    # the perceptual term on the card, seeded random VGG16 weights
+    vgg = VGG16Blocks()
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in vgg.parameters():
+            fan_in = p[0].numel() if p.ndim > 1 else 1
+            p.copy_(torch.randn(p.shape, generator=g)
+                    * ((2.0 / fan_in) ** 0.5 if p.ndim > 1 else 0.1))
+    vgg_step = make_train_step(cfg, (H, W), vgg_params=vgg.cuda())
+    vgg_ms, vgg_stats = [], None
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, stats = vgg_step(state, batch)
+        vgg_stats = {k: float(v) for k, v in stats.items()}
+        torch.cuda.synchronize()
+        vgg_ms.append((time.perf_counter() - t0) * 1e3)
+    if not ("perceptual_loss_1" in vgg_stats and all(
+            v == v and abs(v) != float("inf") for v in vgg_stats.values())):
+        fail(f"VGG train step stats {vgg_stats}")
+    emit("train_vgg", step_ms=vgg_ms, stats=vgg_stats,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # the card vs the CPU: one small step from the same weights and batch
+    sh, sw = TRAIN_SMALL_HW
+    small = make_synthetic_batch(cfg, H=sh, W=sw, split="train", seed=3)
+    small.pop("tar_img")
+    m_gpu = et.build_model(cfg, seed=1, train=True)
+    m_cpu = copy.deepcopy(m_gpu).cpu()
+    small_step = make_train_step(cfg, (sh, sw))
+    _, s_gpu = small_step(create_train_state(cfg, m_gpu), small)
+    _, s_cpu = small_step(create_train_state(cfg, m_cpu), small)
+    loss_gpu, loss_cpu = float(s_gpu["loss"]), float(s_cpu["loss"])
+    if abs(loss_gpu - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu):
+        fail(f"{sh}x{sw} train step loss {loss_gpu} on the card, {loss_cpu} "
+             f"on the CPU (rtol {TRAIN_LOSS_RTOL})")
+    cos = grad_cosines(torch, m_gpu, m_cpu)
+    worst = min(cos.items(), key=lambda kv: kv[1])
+    if worst[1] < TRAIN_GRAD_COS:
+        fail(f"{sh}x{sw} train step: gradient of {worst[0]} at cosine "
+             f"{worst[1]} card vs CPU (limit {TRAIN_GRAD_COS})")
+    emit("train_card_vs_cpu", H=sh, W=sw, loss_card=loss_gpu,
+         loss_cpu=loss_cpu, loss_rtol=TRAIN_LOSS_RTOL,
+         params_compared=len(cos), worst_grad_cosine=worst[1],
+         worst_grad_param=worst[0], cosine_limit=TRAIN_GRAD_COS)
+    return launches, state, step, batch
 
 def main() -> None:
     if not (ROOT / "enerf_tpu_torch" / "__init__.py").is_file():
@@ -425,10 +686,18 @@ def main() -> None:
     k2 = phase_k2(torch, cfg)
     launches, model, batch = phase_frames(torch, cfg)
     phase_profile(torch, model, batch)
+    del model, batch
+    k4 = phase_k4(torch, cfg)
+    train_launches, state, step, train_batch = phase_train(torch)
+    profile_device(torch, "train_profile",
+                   lambda: step(state, train_batch), 2, "step")
 
     per_frame = [c for c in k1 if c["case"] in ("level0", "level1")]
     k1_bound, k1_by = bound_ms(sum(c["bytes"] for c in per_frame),
                                sum(c["flops"] for c in per_frame))
+    per_step = [c for c in k4 if c["case"].startswith("train_")]
+    k4_bound, k4_by = bound_ms(sum(c["bytes"] for c in per_step),
+                               sum(c["flops"] for c in per_step))
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/cost_volume.cu",
@@ -446,6 +715,24 @@ def main() -> None:
          "max_abs_err": max(c["max_abs_err"] for c in k2),
          "ms": k2[0]["ms"]["median"], "plain_ms": k2[0]["plain_ms"]["median"],
          "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],
+         "library_ms": None},
+        {"name": "depth_regression", "route": "cuda",
+         "source": "enerf_tpu_torch/csrc/depth_regression.cu",
+         "replaces": "enerf_tpu/ops/pallas/reductions.py:66",
+         # both main paths: the frames (2 a frame) and the train steps (2 a
+         # step)
+         "launches": launches["depth_regression"]
+         + train_launches["depth_regression"],
+         "launches_by_path": {"frames": launches["depth_regression"],
+                              "train": train_launches["depth_regression"]},
+         "max_abs_err": max(max(c["max_abs_err"], c["grad_max_abs_err"])
+                            for c in k4),
+         # per train step: the level-0 and level-1 launches together
+         "ms": sum(c["ms"]["median"] for c in per_step),
+         "device_ms": sum(c["device_ms"] for c in per_step),
+         "plain_ms": sum(c["plain_ms"]["median"] for c in per_step),
+         "bound_ms": k4_bound, "bound_by": k4_by,
+         # no single PyTorch call computes softmax + expectation + std
          "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,12 @@ Entry points::
     model = enerf_tpu_torch.build_model(cfg)            # on the GPU
     out = enerf_tpu_torch.render(model, batch)          # numpy or tensor batch
 
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+    model = enerf_tpu_torch.build_model(cfg, train=True)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, (H, W))
+    state, stats = step(state, batch)                   # one optimizer step
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on the CPU every CUDA kernel is replaced by its plain PyTorch version.
 """
@@ -33,16 +39,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def build_model(cfg, device=None, seed: int = 0) -> ENeRF:
-    """The ENeRF eval network for ``cfg`` (a ``Config`` or its
-    ``ENeRFConfig``), weights initialized from ``seed``, in eval mode on
-    ``device`` (default: the GPU)."""
+def build_model(cfg, device=None, seed: int = 0, train: bool = False) -> ENeRF:
+    """The ENeRF network for ``cfg`` (a ``Config`` or its ``ENeRFConfig``),
+    weights initialized from ``seed``, on ``device`` (default: the GPU), in
+    eval mode, or in training mode when ``train``."""
     dev = resolve_device(device)
     enerf_cfg = cfg.enerf if isinstance(cfg, Config) else cfg
     if not isinstance(enerf_cfg, ENeRFConfig):
         raise TypeError(f"expected a Config or ENeRFConfig, got {type(cfg)}")
     gen = torch.Generator().manual_seed(seed)
-    return ENeRF(enerf_cfg, generator=gen).eval().to(dev)
+    return ENeRF(enerf_cfg, generator=gen).train(train).to(dev)
 
 
 def to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:

@@ -1,12 +1,22 @@
-"""Cascade ENeRF network, eval forward; counterpart of
-``enerf_tpu/models/enerf.py`` (``ENeRF.__call__`` in eval mode).
+"""Cascade ENeRF network; counterpart of ``enerf_tpu/models/enerf.py``
+(``ENeRF.__call__``, eval and train mode).
 
 Per cascade level: variance cost volume (plane sweep over the source
 features; CUDA kernel ``ops/kernels/cost_volume.py``) → 3D CNN → softmax
-depth regression → depth-guided rays with n samples → IBR shading and
-alpha compositing (CUDA kernel ``ops/kernels/render.py``). Padded source
-views carry ``view_mask = 0``. Module names follow the reference state
-dict (``feature_net``, ``cost_reg_{i}``, ``nerf_{i}``).
+depth regression (CUDA kernel ``ops/kernels/depth_regression.py``) →
+depth-guided rays with n samples → IBR shading and alpha compositing (CUDA
+kernel ``ops/kernels/render.py``). Padded source views carry
+``view_mask = 0``. Module names follow the reference state dict
+(``feature_net``, ``cost_reg_{i}``, ``nerf_{i}``).
+
+In training mode (``model.train()``) the cost volume and the render stage
+run their differentiable plain versions, as the JAX package trains on its
+jnp ops and not on its eval-only kernels; depth regression keeps its
+kernel, whose backward is the plain version's. BN normalizes by batch
+statistics and updates its running statistics every forward. Grid rays
+are used on a level when ``grid_rays`` and, in training, ``train_img``
+of that level; otherwise the rays' bounds and volume features are
+gathered at their pixels.
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ from enerf_tpu_torch.ops.depth import (
     init_depth_values,
 )
 from enerf_tpu_torch.ops.ibr import unpreprocess
-from enerf_tpu_torch.ops.kernels.render import render_rays
+from enerf_tpu_torch.ops.kernels.cost_volume import cost_volume_plain
+from enerf_tpu_torch.ops.kernels.render import render_rays, render_rays_plain
 from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 from enerf_tpu_torch.ops.sampling import resize_bilinear, scale_size
 from enerf_tpu_torch.ops.warp import build_cost_volume
@@ -69,10 +80,10 @@ class ENeRF(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 stage_hook: StageHook = None) -> Dict[str, torch.Tensor]:
-        """Eval forward. ``stage_hook(name)``, when given, is called right
-        after each stage is enqueued (``feature_net``, ``cost_volume_{i}``,
-        ``cost_reg_{i}``, ``depth_{i}``, ``render_{i}``) — a timer records a
-        CUDA event there."""
+        """Forward of the whole cascade. ``stage_hook(name)``, when given,
+        is called right after each stage is enqueued (``feature_net``,
+        ``cost_volume_{i}``, ``cost_reg_{i}``, ``depth_{i}``,
+        ``render_{i}``) — a timer records a CUDA event there."""
         hook = stage_hook or (lambda name: None)
         cas = self.cfg.cas_config
         feats = self.forward_feat(batch["src_inps"])
@@ -99,8 +110,10 @@ class ENeRF(nn.Module):
                                   batch["tar_ext"], batch["tar_ixt"],
                                   src_scale=cas.im_feat_scale[i],
                                   tar_scale=cas.volume_scale[i])
-            volume = build_cost_volume(feats[f"level_{i}"], projs,
-                                       depth_values, view_mask)
+            cost_volume = (cost_volume_plain if self.training
+                           else build_cost_volume)
+            volume = cost_volume(feats[f"level_{i}"], projs, depth_values,
+                                 view_mask)
             hook(f"cost_volume_{i}")
             feat_volume, depth_logits = getattr(self, f"cost_reg_{i}")(volume)
             hook(f"cost_reg_{i}")
@@ -121,7 +134,8 @@ class ENeRF(nn.Module):
                       batch, view_mask) -> Dict[str, torch.Tensor]:
         """Depth-guided rays, then IBR shading + compositing of one level."""
         cas = self.cfg.cas_config
-        grid = self.cfg.grid_rays
+        grid = self.cfg.grid_rays and (cas.train_img[level]
+                                       or not self.training)
         rays = build_rays(batch[f"rays_{level}"], depth, std, near_far,
                           depth_inv=cas.depth_inv[level],
                           up_scale=cas.render_scale[level] / cas.volume_scale[level],
@@ -145,7 +159,8 @@ class ENeRF(nn.Module):
         W = int(W_O * cas.render_scale[level])
         norm = torch.tensor([1.0 / (W - 1), 1.0 / (H - 1), 1.0],
                             dtype=uvd.dtype, device=uvd.device)
-        return render_rays(
+        render = render_rays_plain if self.training else render_rays
+        return render(
             world_xyz, uvd * norm, z_vals, img_feat_rgb, feat_volume,
             batch["src_exts"], batch["src_ixts"], batch["tar_ext"], view_mask,
             getattr(self, f"nerf_{level}"),

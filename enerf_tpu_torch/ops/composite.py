@@ -3,7 +3,8 @@
 
 ENeRF's peculiarities: alpha = 1 - exp(-sigma) with **no dists term**
 (samples are depth-guided), and the depth map is softmax(weights)·z, not
-Σ weights·z.
+Σ weights·z, with z held constant: no gradient reaches z_vals through it
+(``jax.lax.stop_gradient`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ def raw2outputs(raw: torch.Tensor, z_vals: Optional[torch.Tensor],
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
     out = {"rgb": rgb_map, "weights": weights}
     if z_vals is not None:
-        out["depth"] = torch.sum(torch.softmax(weights, dim=-1) * z_vals,
-                                 dim=-1)
+        out["depth"] = torch.sum(torch.softmax(weights, dim=-1)
+                                 * z_vals.detach(), dim=-1)
     if white_bkgd:
         out["rgb"] = rgb_map + (1.0 - torch.sum(weights, dim=-1)[..., None])
     return out

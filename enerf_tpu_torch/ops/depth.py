@@ -15,6 +15,9 @@ from typing import Tuple
 
 import torch
 
+from enerf_tpu_torch.ops.kernels.depth_regression import (
+    depth_regression as kernel_depth_regression,
+)
 from enerf_tpu_torch.ops.sampling import resize_bilinear, scale_size
 
 
@@ -97,11 +100,7 @@ def depth_regression(depth_prob: torch.Tensor, depth_values: torch.Tensor,
 
     depth_prob (logits), depth_values (B, D, H, W). With ``depth_inv`` the
     plane values are converted to disparity first. Returns (depth, std),
-    each (B, H, W), in the pdf's native space."""
-    prob = torch.softmax(depth_prob, dim=1)
-    if depth_inv:
-        depth_values = 1.0 / torch.clamp(depth_values, min=1e-6)
-    depth = torch.sum(prob * depth_values, dim=1)
-    var = torch.sum(prob * (depth_values - depth[:, None]) ** 2, dim=1)
-    std = torch.sqrt(torch.clamp(var, min=1e-10))
-    return depth, std
+    each (B, H, W), in the pdf's native space. The CUDA kernel on the card
+    (``ops/kernels/depth_regression.py``), its plain version on the CPU;
+    differentiable either way."""
+    return kernel_depth_regression(depth_prob, depth_values, depth_inv)

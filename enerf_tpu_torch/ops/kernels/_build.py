@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("cost_volume", "render")
+KERNELS = ("cost_volume", "render", "depth_regression")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -131,6 +131,20 @@ def stream_handle(device) -> int:
 def check_rc(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def refuse_grad(kernel: str, plain: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``kernel``, which
+    has no backward: launching it would cut the graph without a word. The
+    training path calls the differentiable ``plain`` version instead."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            f"the {kernel} kernel has no backward and an input requires a "
+            f"gradient: call {plain} (differentiable) or run under "
+            "torch.no_grad() / torch.inference_mode()")
 
 
 def require(cond: bool, msg: str, *args: object) -> None:

@@ -11,7 +11,8 @@ zeros-padded bilinear gather straight from the NHWC feature map, and the
 masked cross-view variance Σf²/cnt − (Σf/cnt)².
 
 On a CPU tensor ``fused_cost_volume`` runs the plain version; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. It refuses inputs that need a
+gradient; the training path calls ``cost_volume_plain``.
 """
 
 from __future__ import annotations
@@ -90,7 +91,13 @@ def fused_cost_volume(feats: torch.Tensor, proj_mats: torch.Tensor,
 
     feats (B, S, H_s, W_s, C) f32 NHWC; proj_mats (B, S, 3, 4);
     depth_values (B, D, H_t, W_t); view_mask optional (B, S), 1 for real
-    views and 0 for padding. Returns (B, D, H_t, W_t, C) channels-last."""
+    views and 0 for padding. Returns (B, D, H_t, W_t, C) channels-last.
+
+    The kernel has no backward: with gradients enabled, an input that
+    requires one raises ``ValueError`` on every device (training calls
+    ``cost_volume_plain``)."""
+    _build.refuse_grad("cost volume", "cost_volume_plain", feats, proj_mats,
+                       depth_values, view_mask)
     if feats.device.type == "cpu":
         return cost_volume_plain(feats, proj_mats, depth_values, view_mask)
     return _launch(feats, proj_mats, depth_values, view_mask)

@@ -12,7 +12,8 @@ masked softmax blend of the source rgb, and alpha compositing
 (α = 1 − exp(−σ), no dists; depth = softmax(weights)·z).
 
 On a CPU tensor ``render_rays`` runs the plain version; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises. It refuses inputs that need a gradient;
+the training path calls ``render_rays_plain``.
 """
 
 from __future__ import annotations
@@ -93,7 +94,14 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
     grid (the plain version then samples the volume by resize + tent; the
     kernel samples it trilinearly at uvd either way, which is the same
     function). Returns {'rgb' (B, N, 3), 'depth' (B, N), 'weights'
-    (B, N, n)}."""
+    (B, N, n)}.
+
+    The kernel has no backward: with gradients enabled, an input or a head
+    parameter that requires one raises ``ValueError`` on every device
+    (training calls ``render_rays_plain``)."""
+    _build.refuse_grad("render", "render_rays_plain", world_xyz, uvd, z_vals,
+                       img_feat_rgb, feat_volume, src_exts, src_ixts, tar_ext,
+                       view_mask, *head.parameters())
     if world_xyz.device.type == "cpu":
         return render_rays_plain(world_xyz, uvd, z_vals, img_feat_rgb,
                                  feat_volume, src_exts, src_ixts, tar_ext,

@@ -1,0 +1,109 @@
+"""Checkpoints; counterpart of ``enerf_tpu/train/checkpoint.py`` in the
+reference's own format (``lib/utils/net_utils.py:350-512``).
+
+A checkpoint is ``torch.save`` of ``{net, optim, scheduler, recorder,
+epoch}`` as ``{epoch}.pth`` or ``latest.pth`` in the model directory
+(``$workspace/trained_model/{task}/{exp_name}``); the 5 newest numbered
+files are kept. Files are read with ``torch.load(weights_only=True)``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from enerf_tpu_torch.config import Config
+from enerf_tpu_torch.train.state import TrainState
+
+KEEP = 5
+
+
+def _numbered(model_dir: str):
+    return sorted(int(f[:-4]) for f in os.listdir(model_dir)
+                  if f.endswith(".pth") and f[:-4].isdigit())
+
+
+def _pick(model_dir: str, epoch: int = -1) -> Optional[str]:
+    """The checkpoint file of ``epoch`` (-1: ``latest.pth``, else the
+    newest numbered one) in ``model_dir``, or None when there is none."""
+    if not os.path.isdir(model_dir):
+        return None
+    if epoch >= 0:
+        name = f"{epoch}.pth"
+    elif os.path.exists(os.path.join(model_dir, "latest.pth")):
+        name = "latest.pth"
+    else:
+        nums = _numbered(model_dir)
+        if not nums:
+            return None
+        name = f"{nums[-1]}.pth"
+    return os.path.join(model_dir, name)
+
+
+def _load(path: str) -> Dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_model(model_dir: str, state: TrainState, epoch: int,
+               recorder=None, last: bool = False) -> str:
+    """Save the full train state at ``epoch`` as ``{epoch}.pth``, or as
+    ``latest.pth`` when ``last``; drop the oldest numbered file beyond
+    ``KEEP``. Returns the path written."""
+    os.makedirs(model_dir, exist_ok=True)
+    payload = {
+        "net": state.model.state_dict(),
+        "optim": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(),
+        "recorder": recorder.state_dict() if recorder is not None else {},
+        "epoch": epoch,
+    }
+    path = os.path.join(model_dir, "latest.pth" if last else f"{epoch}.pth")
+    torch.save(payload, path)
+    nums = _numbered(model_dir)
+    for old in nums[:max(len(nums) - KEEP, 0)]:
+        os.remove(os.path.join(model_dir, f"{old}.pth"))
+    return path
+
+
+def load_model(model_dir: str, state: TrainState, recorder=None,
+               resume: bool = True, epoch: int = -1) -> int:
+    """Full resume into ``state`` (and ``recorder``) in place; returns the
+    next epoch, 0 when there is nothing to resume."""
+    path = _pick(model_dir, epoch) if resume else None
+    if path is None:
+        return 0
+    ckpt = _load(path)
+    state.model.load_state_dict(ckpt["net"])
+    state.optimizer.load_state_dict(ckpt["optim"])
+    state.scheduler.load_state_dict(ckpt["scheduler"])
+    if recorder is not None:
+        recorder.load_state_dict(ckpt["recorder"])
+    return ckpt["epoch"] + 1
+
+
+def load_network(model: nn.Module, model_dir: str, epoch: int = -1,
+                 strict: bool = True) -> int:
+    """Weights only, for evaluation: from a model directory (``latest.pth``
+    or the newest numbered file, or ``epoch``) or from one ``.pth`` file,
+    the reference's included (its ``net`` keys are the port's parameter
+    names). Returns the next epoch, 0 when there is nothing to load."""
+    path = model_dir if os.path.isfile(model_dir) else _pick(model_dir, epoch)
+    if path is None:
+        return 0
+    ckpt = _load(path)
+    model.load_state_dict(ckpt["net"], strict=strict)
+    return ckpt.get("epoch", -1) + 1
+
+
+def load_pretrain(cfg: Config, model: nn.Module) -> bool:
+    """Warm start from another experiment's newest checkpoint,
+    ``$workspace/trained_model/{task}/{cfg.pretrain}``. Returns whether a
+    checkpoint was loaded."""
+    if not cfg.pretrain:
+        return False
+    pre_dir = os.path.join(cfg.workspace, "trained_model", cfg.task,
+                           cfg.pretrain)
+    return load_network(model, pre_dir) > 0

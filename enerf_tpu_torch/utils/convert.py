@@ -157,3 +157,21 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                                  f"port {tuple(own[k].shape)}")
             own[k].copy_(torch.from_numpy(arr).to(own[k].dtype))
     return module
+
+
+def flax_leaves_by_param(module: nn.Module, tree: Mapping
+                         ) -> Dict[str, np.ndarray]:
+    """A tree shaped as the JAX model's ``params`` collection (the
+    parameters themselves, their gradients, an optimizer moment) as
+    ``{port parameter name: array in the port's layout}``, through the
+    same key map and transposes as ``flax_state_dict``. Every leaf must land
+    on a parameter of ``module`` of the same shape."""
+    params = dict(module.named_parameters())
+    out = flax_state_dict({"params": tree})
+    for k, arr in out.items():
+        if k not in params:
+            raise KeyError(f"JAX leaf maps to {k}, not a parameter of the port")
+        if tuple(params[k].shape) != arr.shape:
+            raise ValueError(f"shape mismatch for {k}: JAX {arr.shape}, "
+                             f"port {tuple(params[k].shape)}")
+    return out

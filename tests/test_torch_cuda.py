@@ -21,6 +21,7 @@ from enerf_tpu_torch.ops.camera import get_proj_mats
 from enerf_tpu_torch.ops.depth import init_depth_values
 from enerf_tpu_torch.ops.ibr import unpreprocess
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+from enerf_tpu_torch.ops.kernels import depth_regression as kdr
 from enerf_tpu_torch.ops.kernels import render as krender
 from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 
@@ -89,3 +90,58 @@ def test_render_kernel_matches_plain(cuda, n_src):
         plain = krender.render_rays_plain(*args, **kw)
     for k in ("rgb", "depth", "weights"):
         torch.testing.assert_close(out[k], plain[k], rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_inv", [True, False])
+def test_depth_regression_kernel_matches_plain(cuda, depth_inv):
+    g = torch.Generator().manual_seed(7)
+    logits = (2.0 * torch.randn(2, 16, 12, 20, generator=g)).to(cuda)
+    values = torch.sort(2.0 + 4.0 * torch.rand(2, 16, 12, 20, generator=g),
+                        dim=1).values.to(cuda)
+    before = kdr.launches
+    out = kdr.depth_regression(logits, values, depth_inv)
+    assert kdr.launches == before + 1
+    plain = kdr.depth_regression_plain(logits, values, depth_inv)
+    for o, p in zip(out, plain):
+        torch.testing.assert_close(o, p, rtol=1e-4, atol=1e-6)
+    grads = []
+    for fn in (kdr.depth_regression, kdr.depth_regression_plain):
+        lt, vt = logits.clone().requires_grad_(), values.clone().requires_grad_()
+        d, s = fn(lt, vt, depth_inv)
+        grads.append(torch.autograd.grad((d * 1.3 + s * 0.7).sum(), (lt, vt)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(cuda):
+    """One train step of the two-level cascade at 64x96 on the card: the
+    depth-regression kernel twice, the cost volume and render kernels not
+    at all (training runs their plain versions), and the same loss as the
+    same step on the CPU (rtol 1e-4: cuDNN and the CPU sum in other
+    orders)."""
+    import copy
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import CascadeConfig, Config, ENeRFConfig
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = Config(enerf=ENeRFConfig(
+        test_input_views=3, train_input_views=(2, 3), grid_rays=True,
+        cas_config=CascadeConfig(num=2, volume_planes=(64, 8))))
+    batch = make_synthetic_batch(cfg, H=H, W=W, split="train")
+    batch.pop("tar_img")
+    model = et.build_model(cfg, seed=0, train=True)
+    cpu_model = copy.deepcopy(model).cpu()
+    p0 = [p.detach().clone() for p in model.parameters()]
+    step = make_train_step(cfg, (H, W))
+    before = (kcv.launches, krender.launches, kdr.launches)
+    _, stats = step(create_train_state(cfg, model), batch)
+    assert (kcv.launches, krender.launches, kdr.launches) == (
+        before[0], before[1], before[2] + 2)
+    assert torch.isfinite(stats["loss"])
+    assert any(not torch.equal(a, b) for a, b in zip(p0, model.parameters()))
+    _, cpu_stats = step(create_train_state(cfg, cpu_model), batch)
+    torch.testing.assert_close(stats["loss"].cpu(), cpu_stats["loss"],
+                               rtol=1e-4, atol=0.0)

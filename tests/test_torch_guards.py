@@ -33,6 +33,7 @@ def test_no_jax_import_in_subprocess():
         "from enerf_tpu_torch.config import dtu_eval_config\n"
         "from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch\n"
         "import enerf_tpu_torch.utils.convert, enerf_tpu_torch.ops.warp\n"
+        "import enerf_tpu_torch.train\n"
         "cfg = dtu_eval_config()\n"
         "out = et.render(et.build_model(cfg, device='cpu'),\n"
         "                make_synthetic_batch(cfg, H=64, W=96))\n"
@@ -85,10 +86,12 @@ def test_kernel_loader_without_nvcc_raises(monkeypatch, tmp_path):
 @pytest.mark.parametrize("kernel", ["cost_volume", "render"])
 def test_wrappers_raise_off_cpu(kernel):
     """A tensor that is not on the CPU never takes the plain path: off a
-    CUDA device the wrapper raises instead of computing."""
+    CUDA device the wrapper raises instead of computing. (Under no_grad: the
+    render head's parameters require a gradient, which the wrapper refuses
+    first, see ``tests/test_torch_depth_kernel.py``.)"""
     meta = dict(device="meta", dtype=torch.float32)
     before = (kcv.launches, krender.launches)
-    with pytest.raises(ValueError, match="CUDA"):
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         if kernel == "cost_volume":
             kcv.fused_cost_volume(torch.empty(1, 3, 8, 8, 16, **meta),
                                   torch.empty(1, 3, 3, 4, **meta),
