@@ -7,9 +7,13 @@ Phases, each printing one JSON line:
   device   the card's name and its nvidia-smi name / power limit
   build    every CUDA kernel built from csrc/*.cu (one nvcc each, in parallel)
   k1       the cost-volume kernel vs its plain PyTorch version at both
-           cascade levels of the 512x640 DTU frame, and with a padded view
-  k2       the render kernel vs its plain version at 327,680 rays, S=3, n=2,
-           and with a padded view
+           cascade levels of the 512x640 DTU frame, with a padded view, and
+           on a level-0 grid cut to 63x79 (a ragged last block); its time
+           by CUDA events around one call, over a run of calls, and on the
+           device alone (torch.profiler)
+  k2       the render kernel vs its plain version at 327,680 rays, n=2:
+           S=3, a padded view, S=2, S=4, a ray count that leaves a ragged
+           warp tile, and a white background; times as for k1
   frames   the DTU eval forward (512x640, 3 source views, volume planes
            (48, 8), render_if (False, True), grid rays, seeded random
            weights) through ``build_model`` / ``render``: per-frame and
@@ -51,6 +55,8 @@ N_FRAMES = 3          # the main-path run whose launches are counted
 TIMED_FRAMES = 10
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
+TF32_PASSES = 3                # K2 splits every f32 product in three
 # K1: the plain version samples through grid_sample's normalized
 # coordinates, whose round trip moves a point by ~3e-5 px at level 1; over
 # the unit-gradient random features used here that moves a variance by up
@@ -101,6 +107,21 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> dict:
             "max": max(times)}
 
 
+def run_ms(torch, fn, n: int = 50, warmup: int = 3) -> float:
+    """CUDA events around ``n`` calls back to back, over ``n``: the host
+    work of a call hides behind the device work of the one before."""
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def max_err(torch, out, ref, rtol, atol, what):
     """Max abs error of ``out`` vs ``ref``; fails past atol + rtol |ref|."""
     if out.shape != ref.shape:
@@ -115,9 +136,10 @@ def max_err(torch, out, ref, rtol, atol, what):
     return float(diff.max())
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -155,16 +177,24 @@ def phase_build():
          built_now=sorted(_build.BUILD_LOGS), ptxas=ptxas)
 
 
-def _synthetic(cfg, n_src):
+def _synthetic(cfg, n_src, slots=None):
+    """The 512x640 synthetic batch with ``slots`` source-view slots (the
+    config's by default), the first ``n_src`` real."""
+    import dataclasses
+
     from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
 
+    if slots is not None:
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, test_input_views=slots, train_input_views=(slots,)))
     batch = make_synthetic_batch(cfg, H=H, W=W, n_src=n_src)
     batch.pop("tar_img")
     return batch
 
 
 def phase_k1(torch, cfg):
-    """Cost-volume kernel vs plain at the two level shapes of the frame."""
+    """Cost-volume kernel vs plain at the two level shapes of the frame,
+    with a padded view, and on a ragged level-0 grid."""
     import enerf_tpu_torch as et
     from enerf_tpu_torch.ops.camera import get_proj_mats
     from enerf_tpu_torch.ops.depth import init_depth_values
@@ -173,8 +203,9 @@ def phase_k1(torch, cfg):
     g = torch.Generator().manual_seed(1)
     cas = cfg.enerf.cas_config
     cases = []
-    for name, level, n_src in (("level0", 0, 3), ("level1", 1, 3),
-                               ("level1_padded_view", 1, 2)):
+    for name, level, n_src, cut in (("level0", 0, 3, 0), ("level1", 1, 3, 0),
+                                    ("level1_padded_view", 1, 2, 0),
+                                    ("level0_ragged", 0, 3, 1)):
         b = et.to_device(_synthetic(cfg, n_src), "cuda")
         C = (32, 16)[level]
         s = cas.im_feat_scale[level]
@@ -182,7 +213,8 @@ def phase_k1(torch, cfg):
         projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
                               b["tar_ixt"], src_scale=s,
                               tar_scale=cas.volume_scale[level])
-        Hv, Wv = int(H * cas.volume_scale[level]), int(W * cas.volume_scale[level])
+        Hv = int(H * cas.volume_scale[level]) - cut
+        Wv = int(W * cas.volume_scale[level]) - cut
         if level == 0:
             dv, _ = init_depth_values(b["near_far"], cas.volume_planes[0], Hv,
                                       Wv, True)
@@ -197,23 +229,28 @@ def phase_k1(torch, cfg):
         out = kcv.fused_cost_volume(*args)
         torch.cuda.synchronize()
         err = max_err(torch, out, plain, what=f"k1 {name}", **K1_TOL)
-        t_k = time_ms(torch, lambda: kcv.fused_cost_volume(*args))
+        call = lambda: kcv.fused_cost_volume(*args)  # noqa: E731
+        t_k = time_ms(torch, call)
+        t_run = run_ms(torch, call)
+        t_dev = device_kernel_ms(torch, call, "cost_volume_kernel")
         t_p = time_ms(torch, lambda: kcv.cost_volume_plain(*args))
         n_valid = float(vm.sum())
         n_vox = out.numel() // C
         flops = n_vox * (n_valid * (8 * C + 24) + 3 * C)
         bd, by = bound_ms(nbytes(feats, projs, dv, vm, out), flops)
         case = dict(case=name, shape=list(out.shape), views_valid=n_valid,
-                    max_abs_err=err, tol=K1_TOL, ms=t_k, plain_ms=t_p,
-                    bound_ms=bd, bound_by=by, bytes=nbytes(feats, projs, dv, vm, out),
-                    flops=flops)
+                    max_abs_err=err, tol=K1_TOL, ms=t_k, run_ms=t_run,
+                    device_ms=t_dev, plain_ms=t_p, bound_ms=bd, bound_by=by,
+                    bytes=nbytes(feats, projs, dv, vm, out), flops=flops)
         emit("k1", **case)
         cases.append(case)
     return cases
 
 
 def phase_k2(torch, cfg):
-    """Render kernel vs plain at the full 512x640 ray grid."""
+    """Render kernel vs plain at the full 512x640 ray grid: S = 3, a
+    padded view, S = 2 and 4, a ragged last warp tile (the last 5 rays
+    dropped, so no longer a grid), a white background."""
     import enerf_tpu_torch as et
     from enerf_tpu_torch.models.nerf_head import NeRFHead
     from enerf_tpu_torch.models.layers import init_weights
@@ -226,8 +263,12 @@ def phase_k2(torch, cfg):
     init_weights(head, g, kaiming_linear=True)
     head = head.eval().cuda()
     cases = []
-    for name, n_src in (("full_frame", 3), ("full_frame_padded_view", 2)):
-        b = et.to_device(_synthetic(cfg, n_src), "cuda")
+    for name, slots, n_src, cut, white in (
+            ("full_frame", 3, 3, 0, False),
+            ("full_frame_padded_view", 3, 2, 0, False),
+            ("s2", 2, 2, 0, False), ("s4", 4, 4, 0, False),
+            ("ragged_tile", 3, 3, 5, False), ("white_bkgd", 3, 3, 0, True)):
+        b = et.to_device(_synthetic(cfg, n_src, slots), "cuda")
         Hv, Wv = H // 2, W // 2
         depth = (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)).cuda()
         std = (0.05 + 0.2 * torch.rand(1, Hv, Wv, generator=g)).cuda()
@@ -236,19 +277,26 @@ def phase_k2(torch, cfg):
         rays = build_rays(b["rays_1"], depth, std, nf, False, 2.0, grid=True)
         xyz, uvd, z = sample_along_depth(rays, 2, False)
         uvd = uvd * torch.tensor([1 / (W - 1), 1 / (H - 1), 1.0], device="cuda")
-        img = torch.cat([torch.randn(1, 3, H, W, 8, generator=g).cuda(),
+        img = torch.cat([torch.randn(1, slots, H, W, 8, generator=g).cuda(),
                          unpreprocess(b["src_inps"])], -1).contiguous()
         vol = torch.randn(1, 8, Hv, Wv, 8, generator=g).cuda()
+        if cut:
+            n = xyz.shape[1] - cut
+            xyz, uvd, z = (t[:, :n].contiguous() for t in (xyz, uvd, z))
         args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"],
                 b["tar_ext"], b["view_mask"], head)
-        kw = dict(render_scale=1.0, grid_hw=(H, W))
+        kw = dict(render_scale=1.0, grid_hw=None if cut else (H, W),
+                  white_bkgd=white)
         with torch.inference_mode():
             plain = krender.render_rays_plain(*args, **kw)
             out = krender.render_rays(*args, **kw)
             torch.cuda.synchronize()
             err = max(max_err(torch, out[k], plain[k], what=f"k2 {name} {k}",
                               **K2_TOL) for k in ("rgb", "depth", "weights"))
-            t_k = time_ms(torch, lambda: krender.render_rays(*args, **kw))
+            call = lambda: krender.render_rays(*args, **kw)  # noqa: E731
+            t_k = time_ms(torch, call)
+            t_run = run_ms(torch, call, n=20)
+            t_dev = device_kernel_ms(torch, call, "render_kernel")
             t_p = time_ms(torch, lambda: krender.render_rays_plain(*args, **kw),
                           reps=5, warmup=1)
         n_valid = float(b["view_mask"].sum())
@@ -261,11 +309,16 @@ def phase_k2(torch, cfg):
         flops = 2.0 * macs * samples
         io = nbytes(xyz, uvd, z, img, vol, out["rgb"], out["depth"],
                     out["weights"])
-        bd, by = bound_ms(io, flops)
-        case = dict(case=name, rays=xyz.shape[1], views_valid=n_valid,
-                    max_abs_err=err, tol=K2_TOL, ms=t_k, plain_ms=t_p,
-                    bound_ms=bd, bound_by=by, bytes=io, flops=flops,
-                    macs_per_sample=macs)
+        # the kernel's route: its products in three TF32 passes on the
+        # tensor cores; beside it the f32 CUDA-core bound of PRs 1-2
+        bd, by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
+        bd_f32, by_f32 = bound_ms(io, flops)
+        case = dict(case=name, slots=slots, rays=xyz.shape[1],
+                    views_valid=n_valid, white_bkgd=white, max_abs_err=err,
+                    tol=K2_TOL, ms=t_k, run_ms=t_run, device_ms=t_dev,
+                    plain_ms=t_p, bound_ms=bd, bound_by=by,
+                    bound_f32_ms=bd_f32, bound_f32_by=by_f32, bytes=io,
+                    flops=flops, macs_per_sample=macs)
         emit("k2", **case)
         cases.append(case)
     return cases
@@ -449,23 +502,33 @@ def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
                                    for name, (ms, k) in top]})
 
 
-def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20) -> float:
-    """Mean device time of the kernel named ``kernel_name`` over ``n`` calls
-    of ``fn``, from torch.profiler's CUDA trace: the kernel alone, without
-    the host time of its wrapper that CUDA events around a call include."""
+def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
+                     warmup: int = 5, tries: int = 3) -> float:
+    """Mean device time of the kernel named ``kernel_name`` over the last
+    ``n`` of ``warmup + n`` calls of ``fn``, from torch.profiler's CUDA
+    trace: the kernel alone, without the host time of its wrapper that CUDA
+    events around a call include. The trace now and then lacks launches
+    (CUPTI drops records): a session with fewer than ``n`` is run again, at
+    most ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel_name in e.name]
-    if len(times) != n:
-        fail(f"the profiler saw {len(times)} launches of {kernel_name}, "
-             f"expected {n}")
-    return statistics.mean(times)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(warmup + n):
+                fn()
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == DeviceType.CUDA
+                           and kernel_name in e.name),
+                          key=lambda e: e.time_range.start)
+        if len(launches) >= n:
+            return statistics.mean(e.time_range.elapsed_us() / 1e3
+                                   for e in launches[-n:])
+        print(f"chip_smoke: the profiler saw {len(launches)} launches of "
+              f"{kernel_name}, expected {warmup + n}; profiling again",
+              file=sys.stderr)
+    fail(f"the profiler missed launches of {kernel_name} {tries} times")
 
 
 def phase_k4(torch, cfg):
@@ -693,6 +756,7 @@ def main() -> None:
                    lambda: step(state, train_batch), 2, "step")
 
     per_frame = [c for c in k1 if c["case"] in ("level0", "level1")]
+    full = k2[0]   # the frame's shape: 327,680 rays, S = 3
     k1_bound, k1_by = bound_ms(sum(c["bytes"] for c in per_frame),
                                sum(c["flops"] for c in per_frame))
     per_step = [c for c in k4 if c["case"].startswith("train_")]
@@ -706,6 +770,8 @@ def main() -> None:
          "max_abs_err": max(c["max_abs_err"] for c in k1),
          # per frame: the level-0 and level-1 launches together
          "ms": sum(c["ms"]["median"] for c in per_frame),
+         "run_ms": sum(c["run_ms"] for c in per_frame),
+         "device_ms": sum(c["device_ms"] for c in per_frame),
          "plain_ms": sum(c["plain_ms"]["median"] for c in per_frame),
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "render", "route": "cuda",
@@ -713,9 +779,11 @@ def main() -> None:
          "replaces": "enerf_tpu/ops/pallas/render.py:426",
          "launches": launches["render"],
          "max_abs_err": max(c["max_abs_err"] for c in k2),
-         "ms": k2[0]["ms"]["median"], "plain_ms": k2[0]["plain_ms"]["median"],
-         "bound_ms": k2[0]["bound_ms"], "bound_by": k2[0]["bound_by"],
-         "library_ms": None},
+         "ms": full["ms"]["median"], "run_ms": full["run_ms"],
+         "device_ms": full["device_ms"],
+         "plain_ms": full["plain_ms"]["median"],
+         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+         "bound_f32_ms": full["bound_f32_ms"], "library_ms": None},
         {"name": "depth_regression", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/depth_regression.cu",
          "replaces": "enerf_tpu/ops/pallas/reductions.py:66",

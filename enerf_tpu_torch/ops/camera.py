@@ -13,8 +13,7 @@ import torch
 
 def scale_intrinsics(ixt: torch.Tensor, scale: float) -> torch.Tensor:
     """Scale the first two rows of (..., 3, 3) intrinsics by ``scale``."""
-    s = torch.tensor([scale, scale, 1.0], dtype=ixt.dtype, device=ixt.device)
-    return ixt * s[:, None]
+    return torch.cat([ixt[..., :2, :] * scale, ixt[..., 2:, :]], dim=-2)
 
 
 def get_proj_mats(src_exts: torch.Tensor, src_ixts: torch.Tensor,

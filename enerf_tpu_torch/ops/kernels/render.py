@@ -1,5 +1,6 @@
 """Fused render stage of one cascade level: the CUDA kernel
-``csrc/render.cu``, its wrapper, and its plain PyTorch version.
+``csrc/render.cu`` (the head's products on the tensor cores in three TF32
+passes, f32-accurate), its wrapper, and its plain PyTorch version.
 
 Replaces ``enerf_tpu/ops/pallas/render.py:fused_render_rays`` (kernels
 ``_render_kernel`` → ``_render_math`` and ``_render_kernel_v5``). Per ray,
@@ -23,7 +24,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from enerf_tpu_torch.ops.camera import cam_centers, scale_intrinsics
 from enerf_tpu_torch.ops.composite import raw2outputs
 from enerf_tpu_torch.ops.ibr import get_img_feat, get_vox_feat, get_vox_feat_grid
 from enerf_tpu_torch.ops.kernels import _build
@@ -101,7 +101,8 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
     (training calls ``render_rays_plain``)."""
     _build.refuse_grad("render", "render_rays_plain", world_xyz, uvd, z_vals,
                        img_feat_rgb, feat_volume, src_exts, src_ixts, tar_ext,
-                       view_mask, *head.parameters())
+                       view_mask,
+                       *(head.parameters() if torch.is_grad_enabled() else ()))
     if world_xyz.device.type == "cpu":
         return render_rays_plain(world_xyz, uvd, z_vals, img_feat_rgb,
                                  feat_volume, src_exts, src_ixts, tar_ext,
@@ -110,17 +111,6 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
     return _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume,
                    src_exts, src_ixts, tar_ext, view_mask, head,
                    render_scale, white_bkgd)
-
-
-def _view_cams(src_exts: torch.Tensor, src_ixts: torch.Tensor,
-               render_scale: float) -> torch.Tensor:
-    """Per-view camera rows for the kernel, (B, S, 24): R (9, row-major),
-    t (3), K scaled to render scale (9), camera center (3)."""
-    B, S = src_exts.shape[:2]
-    ixt = scale_intrinsics(src_ixts, render_scale)
-    return torch.cat([src_exts[..., :3, :3].reshape(B, S, 9),
-                      src_exts[..., :3, 3], ixt.reshape(B, S, 9),
-                      cam_centers(src_exts)], dim=-1).contiguous()
 
 
 def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
@@ -140,16 +130,15 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
     if view_mask is None:
         view_mask = torch.ones(B, S, dtype=torch.float32, device=dev)
     view_mask = view_mask.to(torch.float32)
-    cams = _view_cams(src_exts, src_ixts, render_scale)
-    tar_cam = cam_centers(tar_ext).contiguous()
     params = head_params(head).contiguous()
     for name, t, shape in (("world_xyz", world_xyz, (B, N, n, 3)),
                            ("uvd", uvd, (B, N, n, 3)),
                            ("z_vals", z_vals, (B, N, n)),
                            ("img_feat_rgb", img_feat_rgb, (B, S, H, W, Cf)),
                            ("feat_volume", feat_volume, (B, Dv, Hv, Wv, Cv)),
-                           ("cams", cams, (B, S, 24)),
-                           ("tar_cam", tar_cam, (B, 3)),
+                           ("src_exts", src_exts, (B, S, 4, 4)),
+                           ("src_ixts", src_ixts, (B, S, 3, 3)),
+                           ("tar_ext", tar_ext, (B, 4, 4)),
                            ("view_mask", view_mask, (B, S)),
                            ("head params", params, None)):
         req(t.device == dev, "{} is on {}, rays on {}", name, t.device, dev)
@@ -166,13 +155,14 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
     lib = _build.load_library("render")
     fn = lib.enerf_render_rays
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(world_xyz.data_ptr(), uvd.data_ptr(), z_vals.data_ptr(),
-            img_feat_rgb.data_ptr(), feat_volume.data_ptr(), cams.data_ptr(),
-            tar_cam.data_ptr(), view_mask.data_ptr(), params.data_ptr(),
-            rgb.data_ptr(), depth.data_ptr(), weights.data_ptr(),
-            B, N, S, H, W, Dv, Hv, Wv, int(params.numel()), int(white_bkgd),
+            img_feat_rgb.data_ptr(), feat_volume.data_ptr(),
+            src_exts.data_ptr(), src_ixts.data_ptr(), tar_ext.data_ptr(),
+            view_mask.data_ptr(), params.data_ptr(), rgb.data_ptr(),
+            depth.data_ptr(), weights.data_ptr(), B, N, S, H, W, Dv, Hv, Wv,
+            int(params.numel()), int(white_bkgd), float(render_scale),
             _build.stream_handle(dev))
     _build.check_rc("render", rc)
     launches += 1

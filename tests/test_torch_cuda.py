@@ -7,8 +7,11 @@ with a GPU and no JAX it runs alone:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Inputs are seeded and small; tolerances as ``chip_smoke.py`` states them
-(f32 with TF32 off; the kernels sum in another order than the plain
-versions)."""
+(f32 with TF32 off in torch; the kernels sum in another order than the
+plain versions, and the render kernel's products run in three TF32 passes
+that keep f32 accuracy, see ``tests/test_torch_render.py``)."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -37,8 +40,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _batch(n_src, device):
-    b = make_synthetic_batch(dtu_eval_config(), H=H, W=W, n_src=n_src)
+def _batch(n_src, device, slots=3):
+    """A synthetic eval batch with ``slots`` source-view slots, the first
+    ``n_src`` of them real."""
+    cfg = dtu_eval_config()
+    cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+        cfg.enerf, test_input_views=slots, train_input_views=(slots,)))
+    b = make_synthetic_batch(cfg, H=H, W=W, n_src=n_src)
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
@@ -62,10 +70,37 @@ def test_cost_volume_kernel_matches_plain(cuda, level, n_src):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_src", [3, 2])
-def test_render_kernel_matches_plain(cuda, n_src):
-    g = torch.Generator().manual_seed(n_src)
+@pytest.mark.parametrize("C,D,Ht,Wt,n_src", [
+    (32, 48, 7, 11, 3),    # 8 lanes a voxel; 3,696 voxels leave a ragged block
+    (32, 48, 7, 11, 2),    # ... with a padded view
+    (16, 8, 31, 47, 3),    # 4 lanes a voxel; 11,656 voxels, ragged
+    (16, 8, 31, 47, 2),
+])
+def test_cost_volume_kernel_ragged_and_padded(cuda, C, D, Ht, Wt, n_src):
+    """Channel widths 16 and 32, a voxel count whose lanes do not fill the
+    last block, and a padded view (mask 0, identity extrinsics)."""
+    g = torch.Generator().manual_seed(C + n_src)
     b = _batch(n_src, cuda)
+    s = 0.25 if C == 32 else 0.5
+    feats = torch.randn(1, 3, int(H * s), int(W * s), C, generator=g).to(cuda)
+    projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
+                          b["tar_ixt"], src_scale=s, tar_scale=Wt / W)
+    dv, _ = init_depth_values(b["near_far"], D, Ht, Wt, C == 32)
+    args = (feats, projs, dv, b["view_mask"])
+    assert (D * Ht * Wt * C // 4) % 256 != 0
+    assert float(b["view_mask"].sum()) == n_src
+    before = kcv.launches
+    out = kcv.fused_cost_volume(*args)
+    assert kcv.launches == before + 1
+    torch.testing.assert_close(out, kcv.cost_volume_plain(*args), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _render_case(cuda, n_src, slots=3, seed=None, cut=0):
+    """The level-1 render stage's inputs on grid rays of a synthetic frame,
+    the last ``cut`` rays dropped (then no longer a grid)."""
+    g = torch.Generator().manual_seed(n_src if seed is None else seed)
+    b = _batch(n_src, cuda, slots)
     head = NeRFHead(11)
     init_weights(head, g, kaiming_linear=True)
     head = head.eval().to(cuda)
@@ -77,12 +112,18 @@ def test_render_kernel_matches_plain(cuda, n_src):
     rays = build_rays(b["rays_1"], depth, std, nf, False, 2.0, grid=True)
     xyz, uvd, z = sample_along_depth(rays, 2, False)
     uvd = uvd * torch.tensor([1 / (W - 1), 1 / (H - 1), 1.0], device=cuda)
-    img = torch.cat([torch.randn(1, 3, H, W, 8, generator=g).to(cuda),
+    img = torch.cat([torch.randn(1, slots, H, W, 8, generator=g).to(cuda),
                      unpreprocess(b["src_inps"])], -1).contiguous()
     vol = torch.randn(1, 8, Hv, Wv, 8, generator=g).to(cuda)
+    if cut:
+        n = xyz.shape[1] - cut
+        xyz, uvd, z = (t[:, :n].contiguous() for t in (xyz, uvd, z))
     args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"], b["tar_ext"],
             b["view_mask"], head)
-    kw = dict(render_scale=1.0, grid_hw=(H, W))
+    return args, dict(render_scale=1.0, grid_hw=None if cut else (H, W))
+
+
+def _check_render(args, kw):
     with torch.no_grad():
         before = krender.launches
         out = krender.render_rays(*args, **kw)
@@ -90,6 +131,29 @@ def test_render_kernel_matches_plain(cuda, n_src):
         plain = krender.render_rays_plain(*args, **kw)
     for k in ("rgb", "depth", "weights"):
         torch.testing.assert_close(out[k], plain[k], rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_src", [3, 2])
+def test_render_kernel_matches_plain(cuda, n_src):
+    _check_render(*_render_case(cuda, n_src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,n_src,cut,white", [
+    (2, 2, 0, False),      # S = 2
+    (4, 4, 0, False),      # S = 4
+    (4, 3, 0, False),      # S = 4 with a padded view
+    (3, 3, 5, False),      # 6,139 rays: the last warp tile is ragged
+    (2, 2, 3, False),
+    (3, 3, 0, True),       # white background
+    (3, 2, 1, True),
+])
+def test_render_kernel_views_ragged_white(cuda, slots, n_src, cut, white):
+    args, kw = _render_case(cuda, n_src, slots, seed=10 * slots + n_src, cut=cut)
+    assert args[3].shape[1] == slots and float(args[8].sum()) == n_src
+    assert args[0].shape[1] == H * W - cut
+    _check_render(args, dict(kw, white_bkgd=white))
 
 
 @pytest.mark.cuda

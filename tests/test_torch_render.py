@@ -109,3 +109,69 @@ def test_head_params_layout():
     assert torch.equal(flat[:44], head.agg.view_fc[0].weight.reshape(-1))
     assert torch.equal(flat[-65:-1], head.color[2].weight.reshape(-1))
 
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: add half of the dropped
+    13 bits to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _linear_tf32(passes):
+    """``F.linear`` as the render kernel's tensor cores compute it: TF32
+    operands, products exact, sums in f32. Three passes split each operand
+    as hi = tf32(x), lo = tf32(x - hi) and add a_lo·b_hi + a_hi·b_lo +
+    a_hi·b_hi; one pass is a plain TF32 product."""
+    def linear(x, w, b=None):
+        xh, wh = _tf32(x), _tf32(w)
+        y = xh @ wh.T
+        if passes == 3:
+            y = (_tf32(x - xh) @ wh.T + xh @ _tf32(w - wh).T) + y
+        return y if b is None else y + b
+    return linear
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_render_tf32_split_precision(monkeypatch, passes):
+    """The render kernel's precision scheme on the CPU, without JAX: every
+    Linear of the head (the kernel keeps four small ones in f32, so this
+    is the harder case) in three TF32 passes stays within the kernel's
+    tolerance of the f32 plain path (rtol 1e-4 / atol 2e-4, as
+    chip_smoke.py's K2_TOL); one TF32 pass leaves it."""
+    from enerf_tpu_torch.config import dtu_eval_config
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch as t_batch
+    from enerf_tpu_torch.models.layers import init_weights
+    from enerf_tpu_torch.ops.ibr import unpreprocess
+    from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
+
+    g = torch.Generator().manual_seed(11)
+    b = {k: torch.from_numpy(v) for k, v in
+         t_batch(dtu_eval_config(), H=H, W=W, n_src=3).items()}
+    head = NeRFHead(11)
+    init_weights(head, g, kaiming_linear=True)
+    head = head.eval()
+    Hv, Wv = H // 2, W // 2
+    depth = 3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)
+    std = 0.05 + 0.2 * torch.rand(1, Hv, Wv, generator=g)
+    nf = torch.stack([torch.full((1, Hv, Wv), 2.8),
+                      torch.full((1, Hv, Wv), 5.0)], 1)
+    rays = build_rays(b["rays_1"], depth, std, nf, False, 2.0, grid=True)
+    xyz, uvd, z = sample_along_depth(rays, 2, False)
+    uvd = uvd * torch.tensor([1 / (W - 1), 1 / (H - 1), 1.0])
+    img = torch.cat([torch.randn(1, 3, H, W, 8, generator=g),
+                     unpreprocess(b["src_inps"])], -1)
+    vol = torch.randn(1, 8, Hv, Wv, 8, generator=g)
+    args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"], b["tar_ext"],
+            b["view_mask"], head)
+    kw = dict(render_scale=1.0, grid_hw=(H, W))
+    with torch.no_grad():
+        ref = krender.render_rays_plain(*args, **kw)
+        monkeypatch.setattr(torch.nn.functional, "linear", _linear_tf32(passes))
+        out = krender.render_rays_plain(*args, **kw)
+    monkeypatch.undo()
+    within = all(torch.allclose(out[k], ref[k], rtol=1e-4, atol=2e-4)
+                 for k in ("rgb", "depth", "weights"))
+    assert within == (passes == 3), {
+        k: float((out[k] - ref[k]).abs().max()) for k in out}
