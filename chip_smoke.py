@@ -23,7 +23,13 @@ Phases, each printing one JSON line:
            the kernels that take the most device time
   k4       the depth-regression kernel vs its plain version, forward and
            gradient, at the train shapes of both cascade levels and the
-           eval level-0 shape
+           eval level-0 shape, then 5 planes over a ragged pixel count, a
+           batch of 2 at level 0, and bfloat16 inputs at both train levels;
+           times as for k1, and at the three main-path shapes and the
+           ragged one the device time of every plan (planes per thread),
+           launched through the kernel's C function
+  k4_floor an empty kernel's device time on the same card: the launch floor
+           beside K4's bounds
   train    the train step of ``tools/bench_train.py``'s workload (512x640,
            3 source views, volume planes (64, 8), both levels rendering
            the full image on grid rays, MSE, Adam, seeded random weights)
@@ -43,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,9 +73,14 @@ K2_TOL = dict(rtol=1e-4, atol=2e-4)
 E2E_ATOL = {"rgb_level1": 3e-4, "weights_level1": 3e-4, "depth_level1": 3e-3,
             "depth_mvs_level1": 3e-3, "std_level1": 3e-3}
 E2E_RTOL = 1e-3
-# K4: the kernel sums Σe·v / Σe in plane order, the plain version
-# softmax-then-sum in torch's reduction order (f32, 8-64 terms)
+# K4: the kernel sums Σe·v / Σe over plane groups merged by Chan's update,
+# the plain version softmax-then-sum in torch's reduction order (f32, 5-64
+# terms)
 K4_TOL = dict(rtol=1e-4, atol=1e-6)
+# K4 on bfloat16 inputs, outputs rounded to bfloat16 (tests/test_pallas.py's
+# bf16 tolerances): one rounding of an f32 result, summed in another order
+K4_BF16_TOL = {"depth": dict(rtol=1e-2, atol=0.0),
+               "std": dict(rtol=2e-2, atol=1e-3)}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10      # timed steps of the train main path
 # the card vs the CPU on a small train step: f32 with TF32 off on both, but
@@ -124,10 +136,12 @@ def run_ms(torch, fn, n: int = 50, warmup: int = 3) -> float:
 
 def max_err(torch, out, ref, rtol, atol, what):
     """Max abs error of ``out`` vs ``ref``; fails past atol + rtol |ref|."""
-    if out.shape != ref.shape:
-        fail(f"{what}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        fail(f"{what}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} "
+             f"{ref.dtype}")
     if not bool(torch.isfinite(out).all()):
         fail(f"{what}: non-finite values")
+    out, ref = out.float(), ref.float()
     diff = (out - ref).abs()
     bad = diff > atol + rtol * ref.abs()
     if bool(bad.any()):
@@ -163,6 +177,24 @@ def phase_device(torch):
     return smi_line
 
 
+def ptxas_summary(log: str) -> list:
+    """ptxas' registers and spills, one line for each compiled kernel,
+    named by its mangled symbol from the kernel's name on (template
+    arguments as ``ILi8EfE`` = <8, float>)."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            sym = ln.split("'")[1]
+            m = re.search(r"[a-z_]*_kernel\w*", sym)
+            name = m.group(0) if m else sym
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+    return out
+
+
 def phase_build():
     from enerf_tpu_torch.ops.kernels import _build
 
@@ -170,9 +202,7 @@ def phase_build():
     _build.build_all()
     for name in _build.KERNELS:
         _build.load_library(name)
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in _build.BUILD_LOGS.items()}
+    ptxas = {n: ptxas_summary(log) for n, log in _build.BUILD_LOGS.items()}
     emit("build", seconds=time.perf_counter() - t0, kernels=list(_build.KERNELS),
          built_now=sorted(_build.BUILD_LOGS), ptxas=ptxas)
 
@@ -431,7 +461,10 @@ def phase_frames(torch, cfg):
     for k, v in out.items():
         if not bool(torch.isfinite(v).all()):
             fail(f"non-finite values in {k}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _, frame_ms, stages = frames(TIMED_FRAMES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the kernel path vs the plain path on the card
     with plain_path():
@@ -457,7 +490,7 @@ def phase_frames(torch, cfg):
          plain_path_frame_ms=plain_ms[1:], plain_path_median_stage_ms=plain_stages,
          kernel_vs_plain_max_abs_err=err, card_vs_cpu_64x96_max_abs_err=err_cpu,
          e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL},
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_mem_gb=peak_gb)
     return launches, model, batch
 
 
@@ -531,36 +564,75 @@ def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
     fail(f"the profiler missed launches of {kernel_name} {tries} times")
 
 
+def k4_plan_device_ms(torch, kdr, logits, values, inv, ppt, want):
+    """Device time of the depth-regression kernel under another plan than
+    the wrapper's: ``ppt`` planes a thread, as many groups as that takes,
+    launched through its C function. Its output must equal ``want`` (the
+    wrapper's) within K4_TOL. Not counted in the wrapper's launches."""
+    from enerf_tpu_torch.ops.kernels import _build
+
+    B, D, Hv, Wv = logits.shape
+    groups = -(-D // ppt)
+    tiles = max(1, kdr.BLOCK_WARPS // groups)
+    fn = _build.load_function("depth_regression", "enerf_depth_regression",
+                              kdr._ARGTYPES)
+    out = [torch.empty_like(want[0]), torch.empty_like(want[1])]
+    stream = _build.stream_handle(logits.device)
+
+    def call():
+        _build.check_rc("depth_regression", fn(
+            logits.data_ptr(), values.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), B, D, Hv, Wv, int(inv),
+            int(logits.dtype == torch.bfloat16), ppt, groups, tiles, stream))
+
+    ms = device_kernel_ms(torch, call, "depth_regression_kernel")
+    for k, o, w in zip(("depth", "std"), out, want):
+        max_err(torch, o, w, what=f"k4 {ppt} planes a thread {k}", **K4_TOL)
+    return ms
+
+
 def phase_k4(torch, cfg):
     """Depth-regression kernel vs plain, forward and gradient, at the
-    train shapes of both levels and the eval level-0 shape."""
+    train shapes of both levels and the eval level-0 shape, then 5 planes
+    over a ragged pixel count, a batch of 2 and bfloat16 inputs; the
+    device time of every planes-per-thread plan at the f32 train and eval
+    shapes and the ragged one; and the launch floor."""
     from enerf_tpu_torch.ops.depth import init_depth_values
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
 
     g = torch.Generator().manual_seed(4)
-    near_far = torch.tensor([[2.5, 5.5]])
     cases = []
-    for name, (D, Hv, Wv), inv in (
-            ("train_level0", (64, H // 8, W // 8), True),
-            ("train_level1", (8, H // 2, W // 2), False),
-            ("eval_level0", (48, H // 8, W // 8), True)):
-        logits = (2.0 * torch.randn(1, D, Hv, Wv, generator=g)).cuda()
+    for name, (B, D, Hv, Wv), inv, dtype in (
+            ("train_level0", (1, 64, H // 8, W // 8), True, torch.float32),
+            ("train_level1", (1, 8, H // 2, W // 2), False, torch.float32),
+            ("eval_level0", (1, 48, H // 8, W // 8), True, torch.float32),
+            ("d5_ragged", (1, 5, 61, 83), False, torch.float32),
+            ("b2_level0", (2, 64, H // 8, W // 8), True, torch.float32),
+            ("bf16_train_level0", (1, 64, H // 8, W // 8), True,
+             torch.bfloat16),
+            ("bf16_train_level1", (1, 8, H // 2, W // 2), False,
+             torch.bfloat16)):
+        logits = (2.0 * torch.randn(B, D, Hv, Wv, generator=g)).to(
+            "cuda", dtype)
         if inv:        # level 0: planes uniform in disparity, every pixel
+            near_far = torch.tensor([[2.5, 5.5]]).expand(B, 2)
             values, _ = init_depth_values(near_far, D, Hv, Wv, True)
         else:          # level 1: per-pixel planes in a band around a surface
-            near = 3.0 + 0.6 * torch.rand(1, 1, Hv, Wv, generator=g)
-            band = 0.05 + 0.4 * torch.rand(1, 1, Hv, Wv, generator=g)
+            near = 3.0 + 0.6 * torch.rand(B, 1, Hv, Wv, generator=g)
+            band = 0.05 + 0.4 * torch.rand(B, 1, Hv, Wv, generator=g)
             lin = torch.linspace(0, 1, D)[None, :, None, None]
             values = (near + lin * band).contiguous()
-        values = values.cuda()
+        values = values.to("cuda", dtype)
+        tol = (K4_BF16_TOL if dtype == torch.bfloat16
+               else {"depth": K4_TOL, "std": K4_TOL})
         plain = kdr.depth_regression_plain(logits, values, inv)
         out = kdr.depth_regression(logits, values, inv)
         torch.cuda.synchronize()
-        err = max(max_err(torch, o, p, what=f"k4 {name} {k}", **K4_TOL)
+        err = max(max_err(torch, o, p, what=f"k4 {name} {k}", **tol[k])
                   for k, o, p in zip(("depth", "std"), out, plain))
         # gradient: the Function's backward vs autograd of the plain version
-        gd = torch.randn(1, Hv, Wv, generator=g).cuda()
-        gs = torch.randn(1, Hv, Wv, generator=g).cuda()
+        gd = torch.randn(B, Hv, Wv, generator=g).to("cuda", dtype)
+        gs = torch.randn(B, Hv, Wv, generator=g).to("cuda", dtype)
         grads = []
         for fn in (kdr.depth_regression, kdr.depth_regression_plain):
             lt = logits.clone().requires_grad_()
@@ -568,26 +640,55 @@ def phase_k4(torch, cfg):
             d, sd = fn(lt, vt, inv)
             grads.append(torch.autograd.grad((d, sd), (lt, vt), (gd, gs)))
         grad_err = max(max_err(torch, a, b, what=f"k4 {name} grad {k}",
-                               **K4_TOL)
+                               **tol["std"])
                        for k, a, b in zip(("logits", "values"), *grads))
-        t_k = time_ms(torch, lambda: kdr.depth_regression(logits, values, inv),
-                      reps=50, warmup=5)
-        dev_ms = device_kernel_ms(
-            torch, lambda: kdr.depth_regression(logits, values, inv),
-            "depth_regression_kernel")
+        call = lambda: kdr.depth_regression(logits, values, inv)  # noqa: E731
+        t_k = time_ms(torch, call, reps=50, warmup=5)
+        t_run = run_ms(torch, call)
+        dev_ms = device_kernel_ms(torch, call, "depth_regression_kernel")
         t_p = time_ms(torch, lambda: kdr.depth_regression_plain(
             logits, values, inv), reps=50, warmup=5)
         io = nbytes(logits, values, *out)
-        # per plane: exp twice, compare, 2 FMA and 3 more for the moment
+        # per plane: max, exp, 2 adds, 2 FMA for Σe and Σe·v, 3 for the
+        # moment; the disparity's divide
         flops = logits.numel() * (10 + (2 if inv else 0))
         bd, by = bound_ms(io, flops)
-        case = dict(case=name, shape=list(logits.shape), depth_inv=inv,
-                    max_abs_err=err, grad_max_abs_err=grad_err, tol=K4_TOL,
-                    ms=t_k, device_ms=dev_ms, plain_ms=t_p, bound_ms=bd,
-                    bound_by=by, bytes=io, flops=flops)
+        ppt, groups, tiles, blocks = kdr.plan(D, B * Hv * Wv)
+        case = dict(case=name, shape=list(logits.shape),
+                    dtype=str(dtype).replace("torch.", ""), depth_inv=inv,
+                    plan={"planes_per_thread": ppt, "groups": groups,
+                          "pixel_tiles": tiles, "blocks": blocks},
+                    max_abs_err=err, grad_max_abs_err=grad_err, tol=tol,
+                    ms=t_k, run_ms=t_run, device_ms=dev_ms, plain_ms=t_p,
+                    bound_ms=bd, bound_by=by, bytes=io, flops=flops)
+        if name in ("train_level0", "train_level1", "eval_level0",
+                    "d5_ragged"):
+            case["device_ms_by_planes_per_thread"] = {
+                p: k4_plan_device_ms(torch, kdr, logits, values, inv, p, out)
+                for p in (1, 2, 4, 8) if -(-D // p) <= kdr.MAX_GROUPS}
         emit("k4", **case)
         cases.append(case)
     return cases
+
+
+def phase_k4_floor(torch) -> dict:
+    """An empty kernel (``csrc/depth_regression.cu:enerf_empty_kernel``):
+    its device time is the least any launch takes on this card."""
+    import ctypes
+
+    from enerf_tpu_torch.ops.kernels import _build
+
+    fn = _build.load_function("depth_regression", "enerf_empty_kernel",
+                              [ctypes.c_void_p])
+    stream = _build.stream_handle(torch.device("cuda"))
+
+    def call():
+        _build.check_rc("empty", fn(stream))
+
+    floor = dict(device_ms=device_kernel_ms(torch, call, "empty_kernel"),
+                 run_ms=run_ms(torch, call), ms=time_ms(torch, call))
+    emit("k4_floor", **floor)
+    return floor
 
 
 def bench_train_config():
@@ -751,6 +852,7 @@ def main() -> None:
     phase_profile(torch, model, batch)
     del model, batch
     k4 = phase_k4(torch, cfg)
+    floor = phase_k4_floor(torch)
     train_launches, state, step, train_batch = phase_train(torch)
     profile_device(torch, "train_profile",
                    lambda: step(state, train_batch), 2, "step")
@@ -794,10 +896,15 @@ def main() -> None:
          "launches_by_path": {"frames": launches["depth_regression"],
                               "train": train_launches["depth_regression"]},
          "max_abs_err": max(max(c["max_abs_err"], c["grad_max_abs_err"])
-                            for c in k4),
+                            for c in k4 if c["dtype"] == "float32"),
+         "max_abs_err_bf16": max(max(c["max_abs_err"], c["grad_max_abs_err"])
+                                 for c in k4 if c["dtype"] == "bfloat16"),
          # per train step: the level-0 and level-1 launches together
          "ms": sum(c["ms"]["median"] for c in per_step),
+         "run_ms": sum(c["run_ms"] for c in per_step),
          "device_ms": sum(c["device_ms"] for c in per_step),
+         # an empty kernel's device time, twice (two launches a step)
+         "launch_floor_ms": 2 * floor["device_ms"],
          "plain_ms": sum(c["plain_ms"]["median"] for c in per_step),
          "bound_ms": k4_bound, "bound_by": k4_by,
          # no single PyTorch call computes softmax + expectation + std

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 the hash covers the source and the flags: an unchanged source is built
 once per checkout, and ``python3 chip_smoke.py`` on a fresh checkout
 builds everything it needs. The library is loaded with ``ctypes``
-(pointers, sizes and the stream are passed as plain integers).
+(pointers, sizes and the stream are passed as plain integers), and each
+C function is bound once (``load_function``).
 
 Nothing here runs at import time: this module imports on a machine with
 no CUDA toolkit, and only ``load_library`` / ``build_all`` need ``nvcc``.
@@ -19,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -31,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], Callable[..., int]] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -119,6 +121,21 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_lib_path(name)))
     _LIBS[name] = lib
     return lib
+
+
+def load_function(name: str, symbol: str,
+                  argtypes: Sequence[type]) -> Callable[..., int]:
+    """The C function ``symbol`` of kernel library ``name``, returning an
+    ``int`` (a ``cudaError_t``) and taking ``argtypes``; bound at the first
+    call and cached, so a launch pays no library lookup or ``argtypes``
+    set-up."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _FUNCS[(name, symbol)] = fn
+    return fn
 
 
 def stream_handle(device) -> int:

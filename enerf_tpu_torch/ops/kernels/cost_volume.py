@@ -28,6 +28,10 @@ from enerf_tpu_torch.ops.sampling import bilinear_sample_2d_multi
 # Launches of the CUDA kernel since the last reset (set to 0 to reset).
 launches = 0
 
+# enerf_cost_volume(feats, proj_mats, depth_values, view_mask, out, B, S,
+# H_s, W_s, C, D, H_t, W_t, stream)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
 _C_MAX = 32
 
 
@@ -130,10 +134,7 @@ def _launch(feats, proj_mats, depth_values, view_mask):
     req(feats.data_ptr() % 16 == 0, "feats must be 16-byte aligned")
 
     out = torch.empty(B, D, H_t, W_t, C, dtype=torch.float32, device=dev)
-    lib = _build.load_library("cost_volume")
-    fn = lib.enerf_cost_volume
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn = _build.load_function("cost_volume", "enerf_cost_volume", _ARGTYPES)
     rc = fn(feats.data_ptr(), proj_mats.data_ptr(), depth_values.data_ptr(),
             view_mask.data_ptr(), out.data_ptr(),
             B, S, H_s, W_s, C, D, H_t, W_t, _build.stream_handle(dev))

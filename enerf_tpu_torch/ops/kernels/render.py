@@ -39,6 +39,11 @@ KERNEL_CV = 8
 KERNEL_NS = 2
 KERNEL_S = (2, 3, 4)
 
+# enerf_render_rays(13 pointers, B, N, S, H, W, Dv, Hv, Wv, n_params,
+# white_bkgd, render_scale, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+             + [ctypes.c_float, ctypes.c_void_p])
+
 
 def head_params(head) -> torch.Tensor:
     """The NeRFHead's weights as the kernel's flat f32 buffer: each Linear's
@@ -152,11 +157,7 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
     rgb = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
     depth = torch.empty(B, N, dtype=torch.float32, device=dev)
     weights = torch.empty(B, N, n, dtype=torch.float32, device=dev)
-    lib = _build.load_library("render")
-    fn = lib.enerf_render_rays
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn = _build.load_function("render", "enerf_render_rays", _ARGTYPES)
     rc = fn(world_xyz.data_ptr(), uvd.data_ptr(), z_vals.data_ptr(),
             img_feat_rgb.data_ptr(), feat_volume.data_ptr(),
             src_exts.data_ptr(), src_ixts.data_ptr(), tar_ext.data_ptr(),

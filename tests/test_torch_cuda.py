@@ -178,6 +178,50 @@ def test_depth_regression_kernel_matches_plain(cuda, depth_inv):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
+# bfloat16 inputs: outputs rounded to bfloat16 (tests/test_pallas.py's
+# bf16 tolerances)
+_K4_TOL = {torch.float32: (dict(rtol=1e-4, atol=1e-6),) * 2,
+           torch.bfloat16: (dict(rtol=1e-2, atol=0.0), dict(rtol=2e-2, atol=1e-3))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,Hv,Wv,dtype,depth_inv", [
+    (1, 5, 7, 13, torch.float32, False),    # 91 pixels: a ragged last block
+    (2, 64, 8, 10, torch.float32, True),    # a batch of 2
+    (1, 300, 3, 11, torch.float32, False),  # past 32 groups: chunks a thread
+    (1, 1, 5, 9, torch.float32, True),      # one plane: 1 a thread
+    (2, 2, 5, 7, torch.float32, True),      # 2 planes a thread
+    (1, 3, 9, 7, torch.bfloat16, False),    # 4 planes a thread, one masked
+    (1, 48, 8, 10, torch.bfloat16, True),
+    (1, 8, 16, 20, torch.bfloat16, False),
+])
+def test_depth_regression_kernel_shapes_and_bf16(cuda, B, D, Hv, Wv, dtype,
+                                                 depth_inv):
+    """Ragged pixel counts, a batch, plane counts from 1 to past the
+    largest block (every planes-per-thread template), bfloat16 inputs and
+    outputs; forward and gradient."""
+    g = torch.Generator().manual_seed(D)
+    logits = (2.0 * torch.randn(B, D, Hv, Wv, generator=g)).to(cuda, dtype)
+    values = torch.sort(2.0 + 4.0 * torch.rand(B, D, Hv, Wv, generator=g),
+                        dim=1).values.to(cuda, dtype)
+    tol_d, tol_s = _K4_TOL[dtype]
+    plain = kdr.depth_regression_plain(logits, values, depth_inv)
+    before = kdr.launches
+    out = kdr.depth_regression(logits, values, depth_inv)
+    assert kdr.launches == before + 1
+    assert out[0].dtype == out[1].dtype == dtype
+    torch.testing.assert_close(out[0], plain[0], **tol_d)
+    torch.testing.assert_close(out[1], plain[1], **tol_s)
+    grads = []
+    for fn in (kdr.depth_regression, kdr.depth_regression_plain):
+        lt, vt = logits.clone().requires_grad_(), values.clone().requires_grad_()
+        d, s = fn(lt, vt, depth_inv)
+        grads.append(torch.autograd.grad((d * 1.3 + s * 0.7).sum(), (lt, vt)))
+    for a, b in zip(*grads):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b, **tol_s)
+
+
 @pytest.mark.cuda
 def test_train_step_on_card(cuda):
     """One train step of the two-level cascade at 64x96 on the card: the
