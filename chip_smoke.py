@@ -11,9 +11,13 @@ Phases, each printing one JSON line:
            on a level-0 grid cut to 63x79 (a ragged last block); its time
            by CUDA events around one call, over a run of calls, and on the
            device alone (torch.profiler)
+  k1_crop  its crop-window mode: the composite frame's fg windows at both
+           levels, a window across the frame's edge, a negative origin, a
+           ragged window, a batch of 2
   k2       the render kernel vs its plain version at 327,680 rays, n=2:
            S=3, a padded view, S=2, S=4, a ray count that leaves a ragged
-           warp tile, and a white background; times as for k1
+           warp tile, and a white background; the human window's 86,016
+           rays at S=2; times as for k1
   frames   the DTU eval forward (512x640, 3 source views, volume planes
            (48, 8), render_if (False, True), grid rays, seeded random
            weights) through ``build_model`` / ``render``: per-frame and
@@ -21,6 +25,19 @@ Phases, each printing one JSON line:
            path on the card, and the card vs the CPU on a small frame
   profile  torch.profiler over two frames: device busy time, idle share,
            the kernels that take the most device time
+  human    the human frame (``human_eval_config``: 512x512, 2 source views,
+           the (384, 224) window over bench.py's centered mask) as
+           ``frames``, its synchronizing calls, and each of the three mask
+           modes kernel vs plain path and card vs CPU at 64x96; then
+           ``human_profile`` and ``human_kernels``: each kernel call of
+           one frame held on its own against its plain version on the
+           inputs the frame gave it, with its device time and bound
+  composite  the composite frame (``composite_eval_config``: 512x640, 3
+           views, 1 fg layer in a (256, 192) window) as ``frames``, its
+           synchronizing calls, card vs CPU at 128x160 with a centered
+           window and one across the frame's edge; then
+           ``composite_profile`` and ``composite_kernels`` (as
+           ``human_kernels``)
   k4       the depth-regression kernel vs its plain version, forward and
            gradient, at the train shapes of both cascade levels and the
            eval level-0 shape, then 5 planes over a ragged pixel count, a
@@ -39,9 +56,14 @@ Phases, each printing one JSON line:
            with seeded random VGG16 weights (the perceptual term); a
            128x160 step on the card vs the same step on the CPU
   train_profile  torch.profiler over two train steps
-then a ``{"kernels": [...]}`` line, the nvidia-smi line, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-the last line. Float32 throughout, TF32 off.
+then a ``{"kernels": [...]}`` line (each kernel's launches on every main
+path: frames, human, composite, train; its calls of a human and a
+composite frame in ``per_frame_by_path``), the nvidia-smi line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before the last line. Float32 throughout, TF32 off. A bound
+counts each input read once and each output written once; K1's source
+features only where its voxels' bilinear footprints touch them
+(``k1_work``).
 """
 
 from __future__ import annotations
@@ -81,6 +103,9 @@ K4_TOL = dict(rtol=1e-4, atol=1e-6)
 # bf16 tolerances): one rounding of an f32 result, summed in another order
 K4_BF16_TOL = {"depth": dict(rtol=1e-2, atol=0.0),
                "std": dict(rtol=2e-2, atol=1e-3)}
+# kernel launches a frame on the variants' main paths
+HUMAN_PER_FRAME = {"cost_volume": 2, "render": 1, "depth_regression": 2}
+COMPOSITE_PER_FRAME = {"cost_volume": 4, "render": 0, "depth_regression": 4}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10      # timed steps of the train main path
 # the card vs the CPU on a small train step: f32 with TF32 off on both, but
@@ -158,7 +183,63 @@ def bound_ms(n_bytes: float, n_flops: float,
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def k1_work(torch, feats, projs, dv, vm, out, window=None):
+    """The bytes and operations of one cost volume ``out`` (B, D, h, w, C).
+    Bytes: the output once; the depth planes of the window (the whole
+    ``dv`` in full mode); the matrices, view mask and origin; and of the
+    source features only the pixels that some voxel's bilinear footprint
+    (its four corners inside the map) touches in a valid view, all C
+    channels of each, once. Operations per voxel: per valid view the warp
+    and the four-corner blend (8C + 24), then the variance (3C)."""
+    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.window import Window
+
+    B, S, Hs, Ws, C = feats.shape
+    xy0 = None
+    if window is not None:
+        xy0, hw = window
+        dv = Window(xy0, hw, dv.shape[2:]).crop(dv, planes=True)
+    if vm is None:
+        vm = torch.ones(B, S, device=feats.device)
+    x, y = kcv.warp_coords(projs, dv, xy0)               # (B, S, D, h, w)
+    x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+    touched = torch.zeros(B * S, Hs * Ws + 1, dtype=torch.bool,
+                          device=feats.device)
+    for dx in (0, 1):
+        for dy in (0, 1):
+            xi, yi = x0 + dx, y0 + dy
+            inside = (xi >= 0) & (xi < Ws) & (yi >= 0) & (yi < Hs)
+            idx = torch.where(inside, yi * Ws + xi, Hs * Ws)
+            touched.scatter_(1, idx.reshape(B * S, -1), True)
+    pixels = float((touched[:, :-1].sum(1).reshape(B, S).float()
+                    * (vm > 0)).sum())
+    io = (pixels * C * feats.element_size() + nbytes(projs, vm, xy0, out)
+          + dv.numel() * dv.element_size())
+    n_valid = float(vm.sum())
+    flops = out.numel() // C * (n_valid / B * (8 * C + 24) + 3 * C)
+    return io, flops, pixels
+
+
+def k2_work(args, out):
+    """The bytes and operations of one render call: its ray and sample
+    inputs, the image features and volume once, its outputs once; per
+    sample and valid view view_fc, global_fc, agg_w_fc and color_0's 15
+    per-view inputs + color_2, once per sample fc, lr0, sigma and
+    color_0's 88 shared inputs (multiply-adds, 2 operations each)."""
+    xyz, uvd, z, img, vol = args[:5]
+    vm = args[8]
+    B, N, n = xyz.shape[:3]
+    n_valid = float(vm.sum()) if vm is not None else float(B * img.shape[1])
+    per_view = 4 * 11 + 33 * 32 + 32 + 15 * 64 + 64
+    shared = 32 * 16 + 24 * 64 + 64 + 88 * 64
+    macs = (n_valid * per_view + B * shared) * N * n
+    io = nbytes(xyz, uvd, z, img, vol, out["rgb"], out["depth"],
+                out["weights"])
+    return io, 2.0 * macs, (n_valid / B * per_view + shared)
 
 
 # ---------------------------------------------------------------------------
@@ -264,15 +345,81 @@ def phase_k1(torch, cfg):
         t_run = run_ms(torch, call)
         t_dev = device_kernel_ms(torch, call, "cost_volume_kernel")
         t_p = time_ms(torch, lambda: kcv.cost_volume_plain(*args))
-        n_valid = float(vm.sum())
-        n_vox = out.numel() // C
-        flops = n_vox * (n_valid * (8 * C + 24) + 3 * C)
-        bd, by = bound_ms(nbytes(feats, projs, dv, vm, out), flops)
-        case = dict(case=name, shape=list(out.shape), views_valid=n_valid,
-                    max_abs_err=err, tol=K1_TOL, ms=t_k, run_ms=t_run,
-                    device_ms=t_dev, plain_ms=t_p, bound_ms=bd, bound_by=by,
-                    bytes=nbytes(feats, projs, dv, vm, out), flops=flops)
+        io, flops, pixels = k1_work(torch, *args, out)
+        bd, by = bound_ms(io, flops)
+        case = dict(case=name, shape=list(out.shape),
+                    views_valid=float(vm.sum()), max_abs_err=err, tol=K1_TOL,
+                    ms=t_k, run_ms=t_run, device_ms=t_dev, plain_ms=t_p,
+                    bound_ms=bd, bound_by=by, bytes=io, flops=flops,
+                    feature_pixels_read=pixels)
         emit("k1", **case)
+        cases.append(case)
+    return cases
+
+
+def phase_k1_crop(torch):
+    """K1's crop-window mode vs its plain version: the composite frame's fg
+    windows at both levels (origin from the centered bbox), a window across
+    the frame's bottom-right edge, one at a negative origin, a ragged one,
+    and a batch of 2 with an origin each."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import composite_eval_config
+    from enerf_tpu_torch.datasets.synthetic import make_composite_batch
+    from enerf_tpu_torch.ops.camera import get_proj_mats
+    from enerf_tpu_torch.ops.depth import init_depth_values
+    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+
+    g = torch.Generator().manual_seed(6)
+    cfg = composite_eval_config()
+    cas = cfg.enerf.cas_config
+    fg_h, fg_w = cfg.enerf.fg_bbox_hw
+    cases = []
+    for name, level, origins, hw in (
+            ("fg_level0", 0, None, None), ("fg_level1", 1, None, None),
+            ("edge_level1", 1, [(280, 200)], None),
+            ("negative_level0", 0, [(-5, 37)], None),
+            ("ragged_level0", 0, [(17, 21)], (31, 23)),
+            ("b2_level1", 1, [(10, 20), (250, 150)], None)):
+        B = len(origins) if origins else 1
+        bnp = make_composite_batch(cfg, H=H, W=W, batch_size=B)
+        b = et.to_device(bnp, "cuda")
+        vs, s = cas.volume_scale[level], cas.im_feat_scale[level]
+        C, D = (32, 16)[level], cas.volume_planes[level]
+        hw = hw or (int(fg_h * vs), int(fg_w * vs))
+        if origins is None:      # the model's origin: (bbox * scale) truncated
+            xy0 = (b["bbox"][:, 0, :2] * vs).to(torch.int32)
+        else:
+            xy0 = torch.tensor(origins, dtype=torch.int32).cuda()
+        feats = torch.randn(B, 3, int(H * s), int(W * s), C, generator=g).cuda()
+        projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
+                              b["tar_ixt"], src_scale=s, tar_scale=vs)
+        Hv, Wv = int(H * vs), int(W * vs)
+        if level == 0:
+            dv, _ = init_depth_values(b["near_far"][:, 0], D, Hv, Wv, True)
+        else:
+            near = 3.0 + 0.6 * torch.rand(B, 1, Hv, Wv, generator=g)
+            band = 0.2 + 0.4 * torch.rand(B, 1, Hv, Wv, generator=g)
+            lin = torch.linspace(0, 1, D)[None, :, None, None]
+            dv = (near + lin * band).cuda()
+        dv, vm = dv.contiguous(), b["view_mask"]
+        args, window = (feats, projs, dv, vm), (xy0, hw)
+        plain = kcv.cost_volume_plain(*args, window=window)
+        out = kcv.fused_cost_volume(*args, window=window)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, plain, what=f"k1 crop {name}", **K1_TOL)
+        call = lambda: kcv.fused_cost_volume(*args, window=window)  # noqa: E731
+        t_k = time_ms(torch, call)
+        t_dev = device_kernel_ms(torch, call, "cost_volume_kernel")
+        t_p = time_ms(torch, lambda: kcv.cost_volume_plain(*args,
+                                                           window=window))
+        io, flops, pixels = k1_work(torch, *args, out, window)
+        bd, by = bound_ms(io, flops)
+        case = dict(case=name, shape=list(out.shape), origin=xy0.tolist(),
+                    frame_hw=[Hv, Wv], views_valid=float(vm.sum()),
+                    max_abs_err=err, tol=K1_TOL, ms=t_k, device_ms=t_dev,
+                    plain_ms=t_p, bound_ms=bd, bound_by=by, bytes=io,
+                    flops=flops, feature_pixels_read=pixels)
+        emit("k1_crop", **case)
         cases.append(case)
     return cases
 
@@ -280,7 +427,8 @@ def phase_k1(torch, cfg):
 def phase_k2(torch, cfg):
     """Render kernel vs plain at the full 512x640 ray grid: S = 3, a
     padded view, S = 2 and 4, a ragged last warp tile (the last 5 rays
-    dropped, so no longer a grid), a white background."""
+    dropped, so no longer a grid), a white background; and the human
+    frame's 86,016 rays of a (384, 224) window at S = 2."""
     import enerf_tpu_torch as et
     from enerf_tpu_torch.models.nerf_head import NeRFHead
     from enerf_tpu_torch.models.layers import init_weights
@@ -297,7 +445,9 @@ def phase_k2(torch, cfg):
             ("full_frame", 3, 3, 0, False),
             ("full_frame_padded_view", 3, 2, 0, False),
             ("s2", 2, 2, 0, False), ("s4", 4, 4, 0, False),
-            ("ragged_tile", 3, 3, 5, False), ("white_bkgd", 3, 3, 0, True)):
+            ("ragged_tile", 3, 3, 5, False), ("white_bkgd", 3, 3, 0, True),
+            # the human frame's ray count: a (384, 224) window, S = 2
+            ("human_window", 2, 2, "window", False)):
         b = et.to_device(_synthetic(cfg, n_src, slots), "cuda")
         Hv, Wv = H // 2, W // 2
         depth = (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)).cuda()
@@ -310,7 +460,11 @@ def phase_k2(torch, cfg):
         img = torch.cat([torch.randn(1, slots, H, W, 8, generator=g).cuda(),
                          unpreprocess(b["src_inps"])], -1).contiguous()
         vol = torch.randn(1, 8, Hv, Wv, 8, generator=g).cuda()
-        if cut:
+        if cut == "window":
+            xyz, uvd, z = (t.reshape((1, H, W) + t.shape[2:])[
+                :, 64:448, 208:432].reshape((1, 384 * 224) + t.shape[2:])
+                .contiguous() for t in (xyz, uvd, z))
+        elif cut:
             n = xyz.shape[1] - cut
             xyz, uvd, z = (t[:, :n].contiguous() for t in (xyz, uvd, z))
         args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"],
@@ -330,15 +484,7 @@ def phase_k2(torch, cfg):
             t_p = time_ms(torch, lambda: krender.render_rays_plain(*args, **kw),
                           reps=5, warmup=1)
         n_valid = float(b["view_mask"].sum())
-        samples = xyz.shape[1] * xyz.shape[2]
-        # multiply-adds per sample: per valid view view_fc, global_fc,
-        # agg_w_fc and color_0's 15 per-view inputs + color_2; once fc, lr0,
-        # sigma and color_0's 88 shared inputs
-        per_view = 4 * 11 + 33 * 32 + 32 + 15 * 64 + 64
-        macs = int(n_valid) * per_view + 32 * 16 + 24 * 64 + 64 + 88 * 64
-        flops = 2.0 * macs * samples
-        io = nbytes(xyz, uvd, z, img, vol, out["rgb"], out["depth"],
-                    out["weights"])
+        io, flops, macs = k2_work(args, out)
         # the kernel's route: its products in three TF32 passes on the
         # tensor cores; beside it the f32 CUDA-core bound of PRs 1-2
         bd, by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
@@ -382,27 +528,136 @@ class StageTimer:
         return self.marks[0][1].elapsed_time(self.marks[-1][1])
 
 
+# where the models call each kernel's wrapper: (kernel, module, name)
+KERNEL_CALL_SITES = (
+    ("cost_volume", "enerf_tpu_torch.ops.warp", "fused_cost_volume"),
+    ("render", "enerf_tpu_torch.models.enerf", "render_rays"),
+    ("depth_regression", "enerf_tpu_torch.ops.depth",
+     "kernel_depth_regression"))
+
+
 @contextlib.contextmanager
+def swapped_kernels(make):
+    """Each model-side reference to a kernel wrapper replaced by
+    ``make(kernel, wrapper)`` while the context lasts."""
+    import importlib
+
+    saved = []
+    for kernel, module, name in KERNEL_CALL_SITES:
+        mod = importlib.import_module(module)
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, make(kernel, getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def plain_path():
     """The same forward with each kernel wrapper swapped for its plain
     version (for the on-card comparison only)."""
-    import enerf_tpu_torch.models.enerf as enerf_mod
-    import enerf_tpu_torch.ops.depth as depth_mod
-    import enerf_tpu_torch.ops.warp as warp_mod
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
-    saved = (warp_mod.fused_cost_volume, enerf_mod.render_rays,
-             depth_mod.kernel_depth_regression)
-    warp_mod.fused_cost_volume = kcv.cost_volume_plain
-    enerf_mod.render_rays = krender.render_rays_plain
-    depth_mod.kernel_depth_regression = kdr.depth_regression_plain
-    try:
-        yield
-    finally:
-        (warp_mod.fused_cost_volume, enerf_mod.render_rays,
-         depth_mod.kernel_depth_regression) = saved
+    plain = {"cost_volume": kcv.cost_volume_plain,
+             "render": krender.render_rays_plain,
+             "depth_regression": kdr.depth_regression_plain}
+    return swapped_kernels(lambda kernel, wrapper: plain[kernel])
+
+
+def recorded_kernel_calls(torch, calls: list):
+    """The same forward, each kernel call appended to ``calls`` as
+    (kernel, args, kwargs) with its tensors cloned before the kernel runs;
+    the kernels still run and count their launches."""
+    def snap(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(snap(v) for v in x)
+        if isinstance(x, dict):
+            return {k: snap(v) for k, v in x.items()}
+        return x
+
+    def make(kernel, wrapper):
+        def call(*args, **kwargs):
+            calls.append((kernel, snap(args), snap(kwargs)))
+            return wrapper(*args, **kwargs)
+        return call
+
+    return swapped_kernels(make)
+
+
+def hold_path_kernels(torch, path, model, batch, per_frame):
+    """Each kernel call of one frame of ``path`` held on its own against
+    its plain version, on the very inputs the frame gave it (recorded by
+    ``recorded_kernel_calls``), within the kernel's tolerance; with its
+    device time, the plain version's time and its bound. The frame must
+    make ``per_frame`` calls of each kernel. Returns the cases."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import render as krender
+
+    calls = []
+    with recorded_kernel_calls(torch, calls):
+        et.render(model, batch)
+    made = {k: sum(c[0] == k for c in calls) for k in per_frame}
+    if made != per_frame:
+        fail(f"{path}: kernel calls in a frame {made}, expected {per_frame}")
+    kernel_fns = {
+        "cost_volume": (kcv.fused_cost_volume, kcv.cost_volume_plain,
+                        "cost_volume_kernel"),
+        "render": (krender.render_rays, krender.render_rays_plain,
+                   "render_kernel"),
+        "depth_regression": (kdr.depth_regression, kdr.depth_regression_plain,
+                             "depth_regression_kernel")}
+    cases = []
+    with torch.inference_mode():
+        for i, (kernel, args, kw) in enumerate(calls):
+            wrapper, plain_fn, symbol = kernel_fns[kernel]
+            call = lambda: wrapper(*args, **kw)            # noqa: E731
+            plain_call = lambda: plain_fn(*args, **kw)     # noqa: E731
+            out, ref = call(), plain_call()
+            torch.cuda.synchronize()
+            what = f"{path} call {i} {kernel}"
+            case = dict(path=path, call=i, kernel=kernel)
+            if kernel == "cost_volume":
+                window = kw.get("window")
+                err = max_err(torch, out, ref, what=what, **K1_TOL)
+                io, flops, pixels = k1_work(torch, *args, out, window)
+                bd, by = bound_ms(io, flops)
+                case.update(shape=list(out.shape), mode=(
+                    "crop" if window is not None else "full"),
+                    feature_pixels_read=pixels, tol=K1_TOL)
+            elif kernel == "depth_regression":
+                logits, values, inv = args
+                err = max(max_err(torch, o, p, what=f"{what} {k}", **K4_TOL)
+                          for k, o, p in zip(("depth", "std"), out, ref))
+                io = nbytes(logits, values, *out)
+                flops = logits.numel() * (10 + (2 if inv else 0))
+                bd, by = bound_ms(io, flops)
+                case.update(shape=list(logits.shape), depth_inv=inv,
+                            plan=list(kdr.plan(logits.shape[1],
+                                               logits[:, 0].numel())),
+                            tol=K4_TOL)
+            else:
+                err = max(max_err(torch, out[k], ref[k], what=f"{what} {k}",
+                                  **K2_TOL) for k in ("rgb", "depth",
+                                                      "weights"))
+                io, flops, _ = k2_work(args, out)
+                bd, by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
+                case.update(rays=args[0].shape[1], samples=args[0].shape[2],
+                            slots=args[3].shape[1], tol=K2_TOL)
+            case.update(max_abs_err=err,
+                        device_ms=device_kernel_ms(torch, call, symbol),
+                        plain_ms=time_ms(torch, plain_call, reps=5,
+                                         warmup=1)["median"],
+                        bound_ms=bd, bound_by=by, bytes=io, flops=flops)
+            emit(f"{path}_kernels", **case)
+            cases.append(case)
+    return cases
 
 
 def randomize_bn_stats(torch, model, seed):
@@ -415,21 +670,33 @@ def randomize_bn_stats(torch, model, seed):
                                                  generator=g))
 
 
-def phase_frames(torch, cfg):
-    """The main path: ``N_FRAMES`` frames through ``render`` with the launch
-    counts reset just before and read just after; then ``TIMED_FRAMES``
-    more for the frame and stage times (medians)."""
-    import enerf_tpu_torch as et
-    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+def reset_launches():
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
-    model = et.build_model(cfg, seed=0)          # on the GPU
-    randomize_bn_stats(torch, model, seed=0)
-    # the frame's inputs live on the card before timing, as the reference
-    # run.py moves its batch before the timed forward
-    batch = et.to_device(_synthetic(cfg, 3), "cuda")
+    kcv.launches = krender.launches = kdr.launches = 0
+
+
+def read_launches() -> dict:
+    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import render as krender
+
+    return {"cost_volume": kcv.launches, "render": krender.launches,
+            "depth_regression": kdr.launches}
+
+
+def drive_frames(torch, phase, model, batch, per_frame, shapes):
+    """A render main path: ``N_FRAMES`` frames through ``render`` with the
+    launch counts reset just before and read just after (they must be
+    ``per_frame`` times the frames, the outputs of ``shapes`` and finite);
+    then ``TIMED_FRAMES`` more for the frame and stage times (medians) and
+    the peak memory, the counter reset first; then the same frame with
+    each kernel swapped for its plain version. Returns the fields of the
+    phase's line, the launches and the kernel path's output."""
+    import enerf_tpu_torch as et
+
     timer = StageTimer(torch)
 
     def frames(n):
@@ -442,25 +709,19 @@ def phase_frames(torch, cfg):
         return out, frame_ms, {k: statistics.median(st[k] for st in stages)
                                for k in stages[0]}
 
-    kcv.launches = krender.launches = kdr.launches = 0
+    reset_launches()
     out, first_ms, _ = frames(N_FRAMES)
-    launches = {"cost_volume": kcv.launches, "render": krender.launches,
-                "depth_regression": kdr.launches}
-    expect_launches = {"cost_volume": 2 * N_FRAMES, "render": N_FRAMES,
-                       "depth_regression": 2 * N_FRAMES}
-    if launches != expect_launches:
-        fail(f"kernel launches on the main path {launches}, expected "
-             f"{expect_launches}")
-    shapes = {k: list(v.shape) for k, v in out.items()}
-    expect = {"rgb_level1": [1, H * W, 3], "depth_level1": [1, H * W],
-              "weights_level1": [1, H * W, 2],
-              "depth_mvs_level1": [1, H // 2, W // 2],
-              "std_level1": [1, H // 2, W // 2]}
-    if shapes != expect:
-        fail(f"output shapes {shapes}, expected {expect}")
+    launches = read_launches()
+    expect = {k: v * N_FRAMES for k, v in per_frame.items()}
+    if launches != expect:
+        fail(f"{phase}: kernel launches on the main path {launches}, "
+             f"expected {expect}")
+    got = {k: list(v.shape) for k, v in out.items()}
+    if got != shapes:
+        fail(f"{phase}: output shapes {got}, expected {shapes}")
     for k, v in out.items():
         if not bool(torch.isfinite(v).all()):
-            fail(f"non-finite values in {k}")
+            fail(f"{phase}: non-finite values in {k}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, frame_ms, stages = frames(TIMED_FRAMES)
@@ -470,28 +731,205 @@ def phase_frames(torch, cfg):
     with plain_path():
         ref, plain_ms, plain_stages = frames(3)
     err = {k: max_err(torch, out[k], ref[k], E2E_RTOL, E2E_ATOL[k],
-                      f"frame {k} kernel vs plain path") for k in out}
-
-    # the card vs the CPU (the plain path, as the CPU tests hold it against
-    # the JAX package) on a small frame
-    small = make_synthetic_batch(cfg, H=64, W=96)
-    out_gpu = et.render(model, small)
-    out_cpu = et.render(copy.deepcopy(model).cpu(), small)
-    err_cpu = {k: max_err(torch, out_gpu[k].cpu(), out_cpu[k], E2E_RTOL,
-                          E2E_ATOL[k], f"64x96 frame {k} card vs CPU")
-               for k in out_cpu}
-
+                      f"{phase} {k} kernel vs plain path") for k in out}
     median_ms = statistics.median(frame_ms)
-    emit("frames", main_path_frames=N_FRAMES, main_path_frame_ms=first_ms,
-         launches=launches,
-         launches_per_frame={k: v / N_FRAMES for k, v in launches.items()},
-         timed_frames=TIMED_FRAMES, frame_ms=frame_ms, median_frame_ms=median_ms,
-         fps=1e3 / median_ms, median_stage_ms=stages,
-         plain_path_frame_ms=plain_ms[1:], plain_path_median_stage_ms=plain_stages,
-         kernel_vs_plain_max_abs_err=err, card_vs_cpu_64x96_max_abs_err=err_cpu,
-         e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL},
-         peak_mem_gb=peak_gb)
+    return dict(main_path_frames=N_FRAMES, main_path_frame_ms=first_ms,
+                launches=launches,
+                launches_per_frame={k: v / N_FRAMES
+                                    for k, v in launches.items()},
+                timed_frames=TIMED_FRAMES, frame_ms=frame_ms,
+                median_frame_ms=median_ms, fps=1e3 / median_ms,
+                median_stage_ms=stages, plain_path_frame_ms=plain_ms[1:],
+                plain_path_median_stage_ms=plain_stages,
+                kernel_vs_plain_max_abs_err=err,
+                e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL},
+                peak_mem_gb=peak_gb), launches, out
+
+
+def card_vs_cpu(torch, phase, model, batch):
+    """One frame of ``model`` on the card vs the same model on the CPU (the
+    plain path, as the CPU tests hold it against the JAX package)."""
+    import enerf_tpu_torch as et
+
+    out_gpu = et.render(model, batch)
+    out_cpu = et.render(copy.deepcopy(model).cpu(), batch)
+    return {k: max_err(torch, out_gpu[k].cpu(), out_cpu[k], E2E_RTOL,
+                       E2E_ATOL[k], f"{phase} {k} card vs CPU")
+            for k in out_cpu}
+
+
+def count_syncs(torch, run_once) -> dict:
+    """The calls that synchronize the host with the card in one
+    ``run_once()``, by ``torch.cuda.set_sync_debug_mode("warn")``: their
+    count and, for each, the innermost line of the port on the Python
+    stack when it warned (file:line)."""
+    import traceback
+    import warnings
+
+    where = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()
+                if "enerf_tpu_torch" in f.filename]
+        f = port[-1] if port else traceback.extract_stack()[-3]
+        where.append(f"{Path(f.filename).parent.name}/"
+                     f"{Path(f.filename).name}:{f.lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run_once()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {"count": len(where),
+            "where": {w: where.count(w) for w in sorted(set(where))}}
+
+
+def phase_frames(torch, cfg):
+    """The DTU frame: ``drive_frames`` at 512x640, then a 64x96 frame on the
+    card vs the CPU."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+
+    model = et.build_model(cfg, seed=0)          # on the GPU
+    randomize_bn_stats(torch, model, seed=0)
+    # the frame's inputs live on the card before timing, as the reference
+    # run.py moves its batch before the timed forward
+    batch = et.to_device(_synthetic(cfg, 3), "cuda")
+    shapes = {"rgb_level1": [1, H * W, 3], "depth_level1": [1, H * W],
+              "weights_level1": [1, H * W, 2],
+              "depth_mvs_level1": [1, H // 2, W // 2],
+              "std_level1": [1, H // 2, W // 2]}
+    fields, launches, _ = drive_frames(
+        torch, "frames", model, batch,
+        {"cost_volume": 2, "render": 1, "depth_regression": 2}, shapes)
+    err_cpu = card_vs_cpu(torch, "64x96 frame", model,
+                          make_synthetic_batch(cfg, H=64, W=96))
+    emit("frames", **fields, card_vs_cpu_64x96_max_abs_err=err_cpu)
     return launches, model, batch
+
+
+def phase_human(torch):
+    """The human frame (``bench.py:run_human``'s workload): ``ENeRFHuman``
+    at 512x512, 2 source views, volume planes (32, 8), level 1 rendered on
+    the (384, 224) window over the centered mask, through ``build_model`` /
+    ``render``; then the two other mask modes, kernel vs plain path at the
+    full frame and card vs CPU at 64x96 for all three."""
+    import dataclasses
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import human_eval_config, human_mask
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+
+    cfg = human_eval_config()
+    HH = WH = 512
+    model = et.build_model(cfg, seed=0)
+    randomize_bn_stats(torch, model, seed=1)
+    batch_np = make_synthetic_batch(cfg, H=HH, W=WH)
+    batch_np.pop("tar_img")
+    batch_np["mask_at_box"] = human_mask(HH, WH)
+    batch = et.to_device(batch_np, "cuda")
+    N = HH * WH
+    shapes = {"rgb_level1": [1, N, 3], "depth_level1": [1, N],
+              "weights_level1": [1, N, 2],
+              "depth_mvs_level1": [1, HH // 2, WH // 2],
+              "std_level1": [1, HH // 2, WH // 2]}
+    fields, launches, out = drive_frames(torch, "human", model, batch,
+                                         HUMAN_PER_FRAME, shapes)
+    outside = batch["mask_at_box"][0] == 0
+    if bool((out["rgb_level1"][0][outside] != 0).any()):
+        fail("human: rgb outside the mask is not 0")
+    syncs = count_syncs(torch, lambda: et.render(model, batch))
+
+    # every mask mode: full frame kernel vs plain path, 64x96 card vs CPU
+    small = make_synthetic_batch(cfg, H=64, W=96)
+    small["mask_at_box"] = human_mask(64, 96)
+    modes = {}
+    for mode, kw in (("window", {}),
+                     ("multiply", dict(mask_window_hw=None)),
+                     ("capacity", dict(mask_window_hw=None,
+                                       mask_ray_capacity=0.5))):
+        mcfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, **kw))
+        m = et.build_model(mcfg, seed=0)
+        m.load_state_dict(model.state_dict())
+        reset_launches()
+        o = et.render(m, batch)
+        launched = read_launches()
+        if launched != HUMAN_PER_FRAME:
+            fail(f"human {mode}: kernel launches {launched} a frame")
+        with plain_path():
+            ref = et.render(m, batch)
+        err = {k: max_err(torch, o[k], ref[k], E2E_RTOL, E2E_ATOL[k],
+                          f"human {mode} {k} kernel vs plain path")
+               for k in o}
+        small_cfg = dataclasses.replace(mcfg, enerf=dataclasses.replace(
+            mcfg.enerf, mask_window_hw=(64, 64) if mode == "window" else None))
+        sm = et.build_model(small_cfg, seed=0)
+        sm.load_state_dict(model.state_dict())
+        modes[mode] = {"launches": launched, "kernel_vs_plain_max_abs_err": err,
+                       "card_vs_cpu_64x96_max_abs_err": card_vs_cpu(
+                           torch, f"human {mode} 64x96", sm, small)}
+    emit("human", H=HH, W=WH, window_hw=list(cfg.enerf.mask_window_hw),
+         mask_share=float(batch["mask_at_box"].mean()), **fields,
+         syncs_per_frame=syncs, modes=modes)
+    profile_device(torch, "human_profile", lambda: et.render(model, batch),
+                   2, "frame")
+    cases = hold_path_kernels(torch, "human", model, batch, HUMAN_PER_FRAME)
+    return launches, cases
+
+
+def phase_composite(torch):
+    """The composite frame (``bench.py:run_composite``'s workload):
+    ``ENeRFComposite`` at 512x640, 3 source views, 1 fg layer in a
+    (256, 192) window, bg volume planes (16, 4), fg volume planes (32, 8),
+    num_samples (2, 1), level 1 rendered, through ``build_model`` /
+    ``render``; card vs CPU at 128x160 with a centered window and one
+    across the frame's edge."""
+    import dataclasses
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import composite_eval_config
+    from enerf_tpu_torch.datasets.synthetic import make_composite_batch
+
+    cfg = composite_eval_config()
+    model = et.build_model(cfg, seed=0)
+    randomize_bn_stats(torch, model, seed=2)
+    batch_np = make_composite_batch(cfg, H=H, W=W)
+    batch_np.pop("tar_img")
+    batch = et.to_device(batch_np, "cuda")
+    N = H * W
+    shapes = {"rgb_level1": [1, N, 3], "depth_level1": [1, N],
+              "weights_level1": [1, N, 2]}
+    fields, launches, out = drive_frames(torch, "composite", model, batch,
+                                         COMPOSITE_PER_FRAME, shapes)
+    syncs = count_syncs(torch, lambda: et.render(model, batch))
+
+    small_cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+        cfg.enerf, fg_bbox_hw=(64, 64)))
+    sm = et.build_model(small_cfg, seed=0)
+    sm.load_state_dict(model.state_dict())
+    err_cpu = {}
+    for where, xy in (("centered", None), ("edge", (140, 100))):
+        small = make_composite_batch(small_cfg, H=128, W=160)
+        small.pop("tar_img")
+        if xy is not None:
+            small["bbox"][0, 0, :2] = xy
+        err_cpu[where] = card_vs_cpu(torch, f"composite 128x160 {where}", sm,
+                                     small)
+    emit("composite", H=H, W=W, fg_bbox_hw=list(cfg.enerf.fg_bbox_hw),
+         bbox=batch_np["bbox"].tolist(), **fields, syncs_per_frame=syncs,
+         card_vs_cpu_128x160_max_abs_err=err_cpu)
+    profile_device(torch, "composite_profile",
+                   lambda: et.render(model, batch), 2, "frame")
+    cases = hold_path_kernels(torch, "composite", model, batch,
+                              COMPOSITE_PER_FRAME)
+    return launches, cases
 
 
 def phase_profile(torch, model, batch, frames: int = 2) -> None:
@@ -611,7 +1049,13 @@ def phase_k4(torch, cfg):
             ("bf16_train_level0", (1, 64, H // 8, W // 8), True,
              torch.bfloat16),
             ("bf16_train_level1", (1, 8, H // 2, W // 2), False,
-             torch.bfloat16)):
+             torch.bfloat16),
+            # D = 32 at the 512x640 level 0 (the composite's fg volume,
+            # padded to the frame) and D = 4 at level 1 (its bg); every
+            # shape of the human and composite frames is held on the
+            # frame's own inputs in ``hold_path_kernels``
+            ("d32_level0", (1, 32, H // 8, W // 8), True, torch.float32),
+            ("d4_level1", (1, 4, H // 2, W // 2), False, torch.float32)):
         logits = (2.0 * torch.randn(B, D, Hv, Wv, generator=g)).to(
             "cuda", dtype)
         if inv:        # level 0: planes uniform in disparity, every pixel
@@ -727,9 +1171,6 @@ def phase_train(torch):
     vs the CPU."""
     import enerf_tpu_torch as et
     from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
-    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
-    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
-    from enerf_tpu_torch.ops.kernels import render as krender
     from enerf_tpu_torch.train import create_train_state, make_train_step
     from enerf_tpu_torch.train.vgg import VGG16Blocks
 
@@ -746,7 +1187,7 @@ def phase_train(torch):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kcv.launches = krender.launches = kdr.launches = 0
+    reset_launches()
     losses, step_ms, phases = [], [], []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -756,8 +1197,7 @@ def phase_train(torch):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         phases.append(timer.stages_ms())
-    launches = {"cost_volume": kcv.launches, "render": krender.launches,
-                "depth_regression": kdr.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # training runs the plain, differentiable cost volume and render stage
     # and the depth-regression kernel (plain-recompute backward)
@@ -847,15 +1287,49 @@ def main() -> None:
     smi_line = phase_device(torch)
     phase_build()
     k1 = phase_k1(torch, cfg)
+    k1_crop = phase_k1_crop(torch)
     k2 = phase_k2(torch, cfg)
-    launches, model, batch = phase_frames(torch, cfg)
+    paths = {}
+    paths["frames"], model, batch = phase_frames(torch, cfg)
     phase_profile(torch, model, batch)
     del model, batch
+    paths["human"], human_calls = phase_human(torch)
+    paths["composite"], composite_calls = phase_composite(torch)
+    path_calls = {"human": human_calls, "composite": composite_calls}
     k4 = phase_k4(torch, cfg)
     floor = phase_k4_floor(torch)
-    train_launches, state, step, train_batch = phase_train(torch)
+    paths["train"], state, step, train_batch = phase_train(torch)
     profile_device(torch, "train_profile",
                    lambda: step(state, train_batch), 2, "step")
+
+    def launches(kernel):
+        by_path = {p: n[kernel] for p, n in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    def on_paths(kernel):
+        """A frame's calls of ``kernel`` on each variant's path, each held
+        on its own (``hold_path_kernels``): summed times and bound."""
+        tc = kernel == "render"       # K2's products on the tensor cores
+        by_path = {}
+        for path, cases in path_calls.items():
+            cs = [c for c in cases if c["kernel"] == kernel]
+            if not cs:
+                continue
+            bd, by = bound_ms(
+                sum(c["bytes"] for c in cs),
+                (TF32_PASSES if tc else 1) * sum(c["flops"] for c in cs),
+                TF32_FLOPS_PER_S if tc else F32_FLOPS_PER_S)
+            by_path[path] = {
+                "calls": len(cs),
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "device_ms": sum(c["device_ms"] for c in cs),
+                "plain_ms": sum(c["plain_ms"] for c in cs),
+                "bound_ms": bd, "bound_by": by}
+        return by_path
+
+    def path_err(kernel):
+        return max((c["max_abs_err"] for cases in path_calls.values()
+                    for c in cases if c["kernel"] == kernel), default=0.0)
 
     per_frame = [c for c in k1 if c["case"] in ("level0", "level1")]
     full = k2[0]   # the frame's shape: 327,680 rays, S = 3
@@ -864,39 +1338,46 @@ def main() -> None:
     per_step = [c for c in k4 if c["case"].startswith("train_")]
     k4_bound, k4_by = bound_ms(sum(c["bytes"] for c in per_step),
                                sum(c["flops"] for c in per_step))
+    crop_frame = [c for c in k1_crop if c["case"] in ("fg_level0", "fg_level1")]
     kernels = [
         {"name": "cost_volume", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/cost_volume.cu",
          "replaces": "enerf_tpu/ops/pallas/cost_volume.py:122",
-         "launches": launches["cost_volume"],
-         "max_abs_err": max(c["max_abs_err"] for c in k1),
-         # per frame: the level-0 and level-1 launches together
+         **launches("cost_volume"),
+         "max_abs_err": max(max(c["max_abs_err"] for c in k1 + k1_crop),
+                            path_err("cost_volume")),
+         # per DTU frame: the level-0 and level-1 launches together
          "ms": sum(c["ms"]["median"] for c in per_frame),
          "run_ms": sum(c["run_ms"] for c in per_frame),
          "device_ms": sum(c["device_ms"] for c in per_frame),
          "plain_ms": sum(c["plain_ms"]["median"] for c in per_frame),
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by,
+         # the crop mode: the composite frame's two fg windows
+         "crop_device_ms": sum(c["device_ms"] for c in crop_frame),
+         "crop_plain_ms": sum(c["plain_ms"]["median"] for c in crop_frame),
+         "crop_bound_ms": sum(c["bound_ms"] for c in crop_frame),
+         # a human and a composite frame's calls, each on its own inputs
+         "per_frame_by_path": on_paths("cost_volume"),
+         "library_ms": None},
         {"name": "render", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/render.cu",
          "replaces": "enerf_tpu/ops/pallas/render.py:426",
-         "launches": launches["render"],
-         "max_abs_err": max(c["max_abs_err"] for c in k2),
+         **launches("render"),
+         "max_abs_err": max(max(c["max_abs_err"] for c in k2),
+                            path_err("render")),
          "ms": full["ms"]["median"], "run_ms": full["run_ms"],
          "device_ms": full["device_ms"],
          "plain_ms": full["plain_ms"]["median"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-         "bound_f32_ms": full["bound_f32_ms"], "library_ms": None},
+         "bound_f32_ms": full["bound_f32_ms"],
+         "per_frame_by_path": on_paths("render"), "library_ms": None},
         {"name": "depth_regression", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/depth_regression.cu",
          "replaces": "enerf_tpu/ops/pallas/reductions.py:66",
-         # both main paths: the frames (2 a frame) and the train steps (2 a
-         # step)
-         "launches": launches["depth_regression"]
-         + train_launches["depth_regression"],
-         "launches_by_path": {"frames": launches["depth_regression"],
-                              "train": train_launches["depth_regression"]},
-         "max_abs_err": max(max(c["max_abs_err"], c["grad_max_abs_err"])
-                            for c in k4 if c["dtype"] == "float32"),
+         **launches("depth_regression"),
+         "max_abs_err": max(max(max(c["max_abs_err"], c["grad_max_abs_err"])
+                                for c in k4 if c["dtype"] == "float32"),
+                            path_err("depth_regression")),
          "max_abs_err_bf16": max(max(c["max_abs_err"], c["grad_max_abs_err"])
                                  for c in k4 if c["dtype"] == "bfloat16"),
          # per train step: the level-0 and level-1 launches together
@@ -907,6 +1388,7 @@ def main() -> None:
          "launch_floor_ms": 2 * floor["device_ms"],
          "plain_ms": sum(c["plain_ms"]["median"] for c in per_step),
          "bound_ms": k4_bound, "bound_by": k4_by,
+         "per_frame_by_path": on_paths("depth_regression"),
          # no single PyTorch call computes softmax + expectation + std
          "library_ms": None},
     ]

@@ -6,6 +6,11 @@ Entry points::
     model = enerf_tpu_torch.build_model(cfg)            # on the GPU
     out = enerf_tpu_torch.render(model, batch)          # numpy or tensor batch
 
+``cfg.network_module`` picks the network: the DTU cascade (``ENeRF``), the
+human variant (``ENeRFHuman``, renders inside ``mask_at_box``) or the
+composite variant (``ENeRFComposite``, fg layers in ``bbox`` windows over
+a bg volume).
+
     from enerf_tpu_torch.train import create_train_state, make_train_step
     model = enerf_tpu_torch.build_model(cfg, train=True)
     state = create_train_state(cfg, model)
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from enerf_tpu_torch.config import Config, ENeRFConfig
+from enerf_tpu_torch.factory import make_network
 from enerf_tpu_torch.models.enerf import ENeRF
 
 
@@ -39,16 +45,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def build_model(cfg, device=None, seed: int = 0, train: bool = False) -> ENeRF:
-    """The ENeRF network for ``cfg`` (a ``Config`` or its ``ENeRFConfig``),
+def build_model(cfg, device=None, seed: int = 0, train: bool = False
+                ) -> ENeRF:
+    """The network ``cfg.network_module`` names (``ENeRF``, ``ENeRFHuman``
+    or ``ENeRFComposite``; an ``ENeRFConfig`` alone gives ``ENeRF``),
     weights initialized from ``seed``, on ``device`` (default: the GPU), in
     eval mode, or in training mode when ``train``."""
     dev = resolve_device(device)
-    enerf_cfg = cfg.enerf if isinstance(cfg, Config) else cfg
-    if not isinstance(enerf_cfg, ENeRFConfig):
+    if isinstance(cfg, ENeRFConfig):
+        cfg = Config(enerf=cfg)
+    if not isinstance(cfg, Config):
         raise TypeError(f"expected a Config or ENeRFConfig, got {type(cfg)}")
     gen = torch.Generator().manual_seed(seed)
-    return ENeRF(enerf_cfg, generator=gen).train(train).to(dev)
+    return make_network(cfg, generator=gen).train(train).to(dev)
 
 
 def to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:

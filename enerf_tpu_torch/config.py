@@ -19,6 +19,8 @@ import os
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
+
 
 def _tup(x):
     """Recursively convert lists to tuples so dataclasses stay hashable;
@@ -138,6 +140,9 @@ class Config:
     save_tag: str = "default"
     gpus: Tuple[int, ...] = (0,)
     workspace: str = ""
+    # the network class, named by the JAX package's module path as the YAML
+    # files carry it; ``factory.make_network`` maps it to the port's class
+    network_module: str = "enerf_tpu.models.enerf"
 
     enerf: ENeRFConfig = field(default_factory=ENeRFConfig)
     train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
@@ -318,7 +323,19 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
         enerf_tree = dict(tree.get("enerf", {}))
         enerf_tree["num_fg_layers"] = tree.pop("num_fg_layers")
         tree["enerf"] = enerf_tree
+    # the reference's module paths name the networks as the JAX package's
+    # make_cfg maps them (enerf_tpu/config.py:446-449, :462-464)
+    net = tree.get("network_module")
+    if isinstance(net, str) and net in _REFERENCE_NETWORKS:
+        tree["network_module"] = _REFERENCE_NETWORKS[net]
     return _build_dataclass(Config, tree)
+
+
+_REFERENCE_NETWORKS = {
+    "lib.networks.enerf.network": "enerf_tpu.models.enerf",
+    "lib.networks.enerf.network_human": "enerf_tpu.models.enerf_human",
+    "lib.networks.enerf.network_composite": "enerf_tpu.models.enerf_composite",
+}
 
 
 def dtu_eval_config() -> Config:
@@ -331,6 +348,54 @@ def dtu_eval_config() -> Config:
                                  render_if=(False, True))))
 
 
+# The human workload of ``bench.py:run_human`` (bench.py:64-65): the mask is
+# a centered 0.74H x 0.42W box (31% of a 512x512 frame, a standing human at
+# ZJU-MoCap framing), the window (384, 224) its 16-snapped static cover.
+HUMAN_MASK_FRAC = (0.74, 0.42)
+HUMAN_WINDOW_HW = (384, 224)
+
+
+def human_eval_config() -> Config:
+    """The ZJU-MoCap-shaped human render configuration (``bench.py:
+    run_human``, bench.py:215-279): ``ENeRFHuman``, 2 source views,
+    ``volume_planes (32, 8)``, level 1 rendered on grid rays inside the
+    static ``HUMAN_WINDOW_HW`` window of the mask ``human_mask``."""
+    return Config(
+        network_module="enerf_tpu.models.enerf_human",
+        enerf=ENeRFConfig(
+            test_input_views=2, train_input_views=(2,), grid_rays=True,
+            mask_window_hw=HUMAN_WINDOW_HW,
+            cas_config=CascadeConfig(num=2, volume_planes=(32, 8),
+                                     render_if=(False, True))))
+
+
+def human_mask(H: int, W: int) -> np.ndarray:
+    """``bench.py:run_human``'s ``mask_at_box`` (bench.py:256-261): a
+    centered ``HUMAN_MASK_FRAC`` box, (1, H * W) float32."""
+    mask = np.zeros((H, W), np.float32)
+    mh, mw = int(H * HUMAN_MASK_FRAC[0]), int(W * HUMAN_MASK_FRAC[1])
+    y0, x0 = (H - mh) // 2, (W - mw) // 2
+    mask[y0:y0 + mh, x0:x0 + mw] = 1.0
+    return mask.reshape(1, -1)
+
+
+def composite_eval_config() -> Config:
+    """The ENeRF-Outdoor-shaped composite render configuration
+    (``bench.py:run_composite``, bench.py:281-330): ``ENeRFComposite``, 3
+    source views, 1 fg layer in a static (256, 192) window,
+    ``bg_volume_planes (16, 4)``, ``volume_planes (32, 8)``,
+    ``num_samples (2, 1)``, level 1 rendered, no view-direction
+    aggregation."""
+    return Config(
+        network_module="enerf_tpu.models.enerf_composite",
+        enerf=ENeRFConfig(
+            test_input_views=3, train_input_views=(2, 3), viewdir_agg=False,
+            num_fg_layers=1, fg_bbox_hw=(256, 192), bg_volume_planes=(16, 4),
+            cas_config=CascadeConfig(num=2, volume_planes=(32, 8),
+                                     num_samples=(2, 1),
+                                     render_if=(False, True))))
+
+
 def asdict(cfg) -> Dict:
     return dataclasses.asdict(cfg)
 
@@ -338,5 +403,7 @@ def asdict(cfg) -> Dict:
 __all__ = [
     "CascadeConfig", "ENeRFConfig", "TrainConfig", "SchedulerConfig",
     "DatasetConfig", "Config", "make_cfg", "load_yaml_tree", "apply_opts",
-    "dtu_eval_config", "replace", "asdict",
+    "dtu_eval_config", "human_eval_config", "human_mask",
+    "composite_eval_config", "HUMAN_MASK_FRAC", "HUMAN_WINDOW_HW", "replace",
+    "asdict",
 ]

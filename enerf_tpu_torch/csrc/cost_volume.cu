@@ -4,15 +4,25 @@
 // (kernels _variance_kernel / _variance_kernel_fast) and its wide-table
 // twin fused_wide_variance. On the TPU the warp coordinates and the corner
 // gathers run in XLA and only the corner blend + variance runs in Pallas;
-// here the whole of ops/warp.py:build_cost_volume is one kernel.
+// here the whole of ops/warp.py:build_cost_volume is one kernel, and so is
+// its crop-window twin build_cost_volume_crop (the composite model's fg
+// volumes).
 //
-// Computes, for every voxel (b, d, y, x) of the target frustum:
+// Computes, for every voxel (b, d, y, x) of an (h, w) window of the target
+// frustum at the origin (x0, y0) of batch b (the whole frame: origin 0,
+// (h, w) = (Ht, Wt)):
 //   for each source view s with view_mask[b, s] != 0:
-//     p = P_s · [x, y, 1, 1/depth]   (z clamped at 1e-6, pixel coordinates)
+//     p = P_s · [x + x0, y + y0, 1, 1/depth]   (z clamped at 1e-6, pixels)
 //     f_s = bilinear sample of feats[b, s] at p, zeros padding per corner
 //   out = Σ m f² / cnt − (Σ m f / cnt)²,  cnt = max(Σ m, 1)
+// where depth = depth[b, d, y + cy0, x + cx0] and (cx0, cy0) is the origin
+// moved into the frame by lax.dynamic_slice's rule (a negative coordinate
+// counts from the end, then clamped so that the window fits): the depth comes from the
+// clamped window, the warp from the unclamped origin, as
+// enerf_tpu/ops/warp.py:build_cost_volume_crop (lax.dynamic_slice) has it.
 // feats (B, S, Hs, Ws, C) NHWC, proj (B, S, 3, 4), depth (B, D, Ht, Wt),
-// view_mask (B, S), out (B, D, Ht, Wt, C) channels-last.
+// view_mask (B, S), origin (B, 2) int [x0, y0] or null (0), out
+// (B, D, h, w, C) channels-last.
 //
 // What bounds it on the H100: memory. Per voxel it writes C floats and
 // does ~10 C flops per view; the feature maps (8 MB at level 0, 16 MB at
@@ -26,9 +36,13 @@
 // 16, 32 thread i writes the float4 at out + 4 i: a warp stores 512
 // contiguous bytes. The warp coordinates are computed once per voxel and
 // view: lane j of the group warps the voxel into view j (G views a round)
-// and the group reads the corner and weights by shuffles. Lanes past the
-// last voxel redo the last one and store nothing, so every lane takes part
-// in the shuffles. Neighbouring voxels are neighbouring x, so their warped
+// and the group reads the corner and weights by shuffles. A grid row holds
+// one depth plane of one batch, so a thread divides only for its voxel's
+// y and x, in 32 bits (voxel-flat 64-bit divides, with the window's
+// depth address waiting on them, were slower at the frame's shapes). Lanes
+// past the plane's last
+// voxel redo it and store nothing, so every lane takes part in the
+// shuffles. Neighbouring voxels are neighbouring x, so their warped
 // coordinates, and gathers, are close in the source map. What remains is
 // the gathers' traffic from L2: 4 corner rows of C floats per voxel and
 // view (377 MB at level 0 and 503 MB at level 1 of the 512x640 frame),
@@ -71,21 +85,38 @@ cost_volume_kernel(const float* __restrict__ feats,
                    const float* __restrict__ proj,
                    const float* __restrict__ depth,
                    const float* __restrict__ vmask,
+                   const int* __restrict__ origin,
                    float* __restrict__ out,
-                   int B, int S, int Hs, int Ws, int D, int Ht, int Wt) {
+                   int B, int S, int Hs, int Ws, int D, int Ht, int Wt,
+                   int h, int w) {
   constexpr int L = C / 4;   // float4s of a voxel's channels
   constexpr int G = group_lanes<C>();
-  const long long total = (long long)B * D * Ht * Wt;
-  const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  // one plane (b, d) a grid row: the plane and batch are uniform over the
+  // block, and only a voxel's y and x take a (32-bit) divide. The entry
+  // point refuses grids past 32-bit voxel indices or 65,535 planes.
+  const unsigned plane = (unsigned)h * w;
+  const unsigned bd = blockIdx.y;           // b * D + d
+  const int b = (int)(bd / D);
+  const unsigned tid = blockIdx.x * THREADS + threadIdx.x;
   const int lane = (int)(tid & (G - 1));
-  const bool live = tid / G < total && lane < L;
-  const long long idx = tid / G < total ? tid / G : total - 1;
+  const bool live = tid / G < plane && lane < L;
+  const unsigned p = tid / G < plane ? tid / G : plane - 1;
+  const unsigned idx = bd * plane + p;      // the voxel's flat index
   const int q = lane < L ? lane : L - 1;   // this lane's float4
-  const int x = (int)(idx % Wt);
-  const int y = (int)((idx / Wt) % Ht);
-  const int b = (int)(idx / ((long long)D * Ht * Wt));
-  const float xf = (float)x, yf = (float)y;
-  const float dv = __ldg(depth + idx);  // depth shares the voxel's flat index
+  const int y = (int)(p / w);
+  const int x = (int)(p - y * w);
+  int x0 = 0, y0 = 0;
+  if (origin != nullptr) {
+    x0 = __ldg(origin + 2 * b);
+    y0 = __ldg(origin + 2 * b + 1);
+  }
+  // lax.dynamic_slice's start: a negative one counts from the end, then
+  // the window is clamped into the frame
+  const int cx0 = min(max(x0 < 0 ? x0 + Wt : x0, 0), Wt - w);
+  const int cy0 = min(max(y0 < 0 ? y0 + Ht : y0, 0), Ht - h);
+  // the pixel's coordinates are small integers, exact in float
+  const float xf = (float)(x + x0), yf = (float)(y + y0);
+  const float dv = __ldg(depth + ((long long)bd * Ht + y + cy0) * Wt + x + cx0);
 
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f), sq = sum;
   float cnt = 0.f;
@@ -140,32 +171,39 @@ cost_volume_kernel(const float* __restrict__ feats,
   if (!live) return;
   const float inv = 1.f / fmaxf(cnt, 1.f);
   const float4 mean = make_float4(sum.x * inv, sum.y * inv, sum.z * inv, sum.w * inv);
-  reinterpret_cast<float4*>(out)[idx * L + lane] =
+  reinterpret_cast<float4*>(out)[(long long)idx * L + lane] =
       make_float4(sq.x * inv - mean.x * mean.x, sq.y * inv - mean.y * mean.y,
                   sq.z * inv - mean.z * mean.z, sq.w * inv - mean.w * mean.w);
 }
 
 template <int C>
 cudaError_t launch(const float* feats, const float* proj, const float* depth,
-                   const float* vmask, float* out, int B, int S, int Hs,
-                   int Ws, int D, int Ht, int Wt, cudaStream_t stream) {
-  const long long threads = (long long)B * D * Ht * Wt * group_lanes<C>();
-  const long long blocks = (threads + THREADS - 1) / THREADS;
-  cost_volume_kernel<C><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      feats, proj, depth, vmask, out, B, S, Hs, Ws, D, Ht, Wt);
+                   const float* vmask, const int* origin, float* out, int B,
+                   int S, int Hs, int Ws, int D, int Ht, int Wt, int h, int w,
+                   cudaStream_t stream) {
+  const long long threads = (long long)h * w * group_lanes<C>();
+  const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS), B * D);
+  cost_volume_kernel<C><<<grid, THREADS, 0, stream>>>(
+      feats, proj, depth, vmask, origin, out, B, S, Hs, Ws, D, Ht, Wt, h, w);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// origin may be null (the whole frame: pass h = Ht, w = Wt); 0 < h <= Ht
+// and 0 < w <= Wt.
 extern "C" int enerf_cost_volume(const float* feats, const float* proj,
                                  const float* depth, const float* vmask,
-                                 float* out, int B, int S, int Hs, int Ws,
-                                 int C, int D, int Ht, int Wt, void* stream) {
-  if ((long long)B * D * Ht * Wt == 0) return 0;
+                                 const int* origin, float* out, int B, int S,
+                                 int Hs, int Ws, int C, int D, int Ht, int Wt,
+                                 int h, int w, void* stream) {
+  if (h > Ht || w > Wt) return (int)cudaErrorInvalidValue;
+  if ((long long)B * D * h * w == 0) return 0;
+  if ((long long)B * D * h * w * 8 >= (1LL << 31) || B * D > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ENERF_CV_CASE(c) \
-  case c: return (int)launch<c>(feats, proj, depth, vmask, out, B, S, Hs, Ws, D, Ht, Wt, st);
+  case c: return (int)launch<c>(feats, proj, depth, vmask, origin, out, B, S, Hs, Ws, D, Ht, Wt, h, w, st);
   switch (C) {
     ENERF_CV_CASE(4) ENERF_CV_CASE(8) ENERF_CV_CASE(12) ENERF_CV_CASE(16)
     ENERF_CV_CASE(20) ENERF_CV_CASE(24) ENERF_CV_CASE(28) ENERF_CV_CASE(32)

@@ -129,3 +129,88 @@ def make_synthetic_batch(cfg: Config, H: int = 64, W: int = 80,
         one[f"msk_{i}"] = m.astype(np.float32)
 
     return {k: np.stack([v] * batch_size) for k, v in one.items()}
+
+
+class SyntheticDataset:
+    """The reference Dataset interface over synthetic batches:
+    ``__getitem__((index, n_views))`` → a sample dict (no batch axis),
+    seeded by the index."""
+
+    def __init__(self, cfg: Config, split: str = "train", H: int = 64,
+                 W: int = 80, length: int = 16):
+        self.cfg = cfg
+        self.split = split
+        self.H, self.W = H, W
+        self.length = length
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index_meta):
+        index, n_views = index_meta
+        batch = make_synthetic_batch(self.cfg, self.H, self.W, n_src=n_views,
+                                     batch_size=1, split=self.split, seed=index)
+        sample = {k: v[0] for k, v in batch.items()}
+        sample["meta"] = {"scene": "synthetic", "tar_view": index,
+                          "frame_id": index}
+        return sample
+
+
+def make_composite_batch(cfg: Config, H: int = 64, W: int = 64,
+                         batch_size: int = 1, split: str = "test",
+                         seed: int = 0) -> Dict[str, np.ndarray]:
+    """A batch for the composite (ENeRF-Outdoor) model: adds
+    ``bg_src_inps``, a ``near_far`` row per fg layer and one for the bg,
+    and each fg layer's ``bbox`` (x, y, w, h), the ``fg_bbox_hw`` window
+    centered in the frame (the reference dataset contract,
+    enerf_outdoor/enerf.py:183-191)."""
+    batch = make_synthetic_batch(cfg, H=H, W=W, batch_size=batch_size,
+                                 split=split, seed=seed)
+    L = cfg.enerf.num_fg_layers
+    batch["near_far"] = np.tile(batch["near_far"][:, None], (1, L + 1, 1))
+    batch["bg_src_inps"] = batch["src_inps"].copy()
+    batch["bbox"] = np.tile(_centered_bbox(cfg, H, W)[None], (batch_size, 1, 1))
+    return batch
+
+
+def _centered_bbox(cfg: Config, H: int, W: int) -> np.ndarray:
+    """(L, 4) int32 x, y, w, h: the ``fg_bbox_hw`` window centered in the
+    (H, W) frame, for each fg layer."""
+    fh, fw = cfg.enerf.fg_bbox_hw
+    return np.array([[(W - fw) // 2, (H - fh) // 2, fw, fh]]
+                    * cfg.enerf.num_fg_layers, np.int32)
+
+
+class Dataset:
+    """The config-registry dataset over synthetic scenes (``input_h_w``,
+    default 64×80). The ``variant`` extra key of the dataset config picks
+    the sample's flavor: '' (generic), 'human' (adds ``mask_at_box``, the
+    central half of the frame, outside training) or 'composite' (adds
+    ``bbox``, ``bg_src_inps`` and the per-layer ``near_far`` rows)."""
+
+    def __init__(self, cfg: Config, ds_cfg):
+        H, W = ds_cfg.input_h_w or (64, 80)
+        extra = dict(ds_cfg.extra)
+        self.cfg = cfg
+        self.variant = extra.get("variant", "")
+        self.split = ds_cfg.split
+        self.H, self.W = H, W
+        self.inner = SyntheticDataset(cfg, split=ds_cfg.split, H=H, W=W,
+                                      length=int(extra.get("length", 16)))
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, index_meta):
+        sample = self.inner[index_meta]
+        H, W = self.H, self.W
+        if self.variant == "human" and self.split != "train":
+            mask = np.zeros((H, W), np.float32)
+            mask[H // 4: 3 * H // 4, W // 4: 3 * W // 4] = 1.0
+            sample["mask_at_box"] = mask.reshape(-1)
+        elif self.variant == "composite":
+            L = self.cfg.enerf.num_fg_layers
+            sample["near_far"] = np.tile(sample["near_far"][None], (L + 1, 1))
+            sample["bg_src_inps"] = sample["src_inps"].copy()
+            sample["bbox"] = _centered_bbox(self.cfg, H, W)
+        return sample

@@ -70,13 +70,7 @@ class ENeRF(nn.Module):
 
     def forward_feat(self, src_inps: torch.Tensor) -> Dict[str, torch.Tensor]:
         """FPN features for all source views, NHWC per level."""
-        B, S, H, W, C = src_inps.shape
-        feat2, feat1, feat0 = self.feature_net(src_inps.reshape(B * S, H, W, C))
-        return {
-            "level_2": feat0.reshape(B, S, H, W, feat0.shape[-1]),
-            "level_1": feat1.reshape(B, S, H // 2, W // 2, feat1.shape[-1]),
-            "level_0": feat2.reshape(B, S, H // 4, W // 4, feat2.shape[-1]),
-        }
+        return fpn_features(self.feature_net, src_inps)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 stage_hook: StageHook = None) -> Dict[str, torch.Tensor]:
@@ -132,31 +126,36 @@ class ENeRF(nn.Module):
 
     def _render_stage(self, level, depth, std, near_far, feat_volume, feats,
                       batch, view_mask) -> Dict[str, torch.Tensor]:
-        """Depth-guided rays, then IBR shading + compositing of one level."""
+        """Depth-guided rays, then IBR shading + compositing of one level:
+        the variant hook (``ENeRFHuman`` renders its masked rays here)."""
         cas = self.cfg.cas_config
         grid = self.cfg.grid_rays and (cas.train_img[level]
                                        or not self.training)
-        rays = build_rays(batch[f"rays_{level}"], depth, std, near_far,
+        rays = self.build_level_rays(level, depth, std, near_far, batch, grid)
+        return self.render_level(level, rays, feat_volume, feats, batch,
+                                 view_mask, grid=grid)
+
+    def build_level_rays(self, level, depth, std, near_far, batch, grid):
+        """The batch's host-built rays of ``level`` with their depth-guided
+        bounds (B, N, 12)."""
+        cas = self.cfg.cas_config
+        return build_rays(batch[f"rays_{level}"], depth, std, near_far,
                           depth_inv=cas.depth_inv[level],
                           up_scale=cas.render_scale[level] / cas.volume_scale[level],
                           grid=grid)
+
+    def render_level(self, level, rays, feat_volume, feats, batch, view_mask,
+                     grid: bool, window=None) -> Dict[str, torch.Tensor]:
+        """Shade and composite ``rays`` (B, N, 12) of one level. ``grid``:
+        the rays are the raster grid of the render frame or, with
+        ``window`` (an ``ops.window.Window`` of the render frame), of that
+        window."""
+        cas = self.cfg.cas_config
         world_xyz, uvd, z_vals = sample_along_depth(
             rays, n_samples=cas.num_samples[level],
             depth_inv=cas.depth_inv[level])
-
-        src_inps = batch["src_inps"]
-        rgbs = unpreprocess(src_inps, render_scale=cas.render_scale[level])
-        im_feat = feats[f"level_{cas.render_im_feat_level[level]}"]
-        up_feat_scale = cas.render_scale[level] / cas.im_ibr_scale[level]
-        if up_feat_scale != 1.0:
-            h, w = im_feat.shape[2:4]
-            im_feat = resize_bilinear(im_feat, (scale_size(h, up_feat_scale),
-                                                scale_size(w, up_feat_scale)))
-        img_feat_rgb = torch.cat([im_feat, rgbs], dim=-1)
-
-        H_O, W_O = src_inps.shape[2:4]
-        H = int(H_O * cas.render_scale[level])
-        W = int(W_O * cas.render_scale[level])
+        img_feat_rgb = image_features(cas, level, feats, batch["src_inps"])
+        H, W = self.render_hw(level, batch)
         norm = torch.tensor([1.0 / (W - 1), 1.0 / (H - 1), 1.0],
                             dtype=uvd.dtype, device=uvd.device)
         render = render_rays_plain if self.training else render_rays
@@ -166,4 +165,38 @@ class ENeRF(nn.Module):
             getattr(self, f"nerf_{level}"),
             render_scale=cas.render_scale[level],
             white_bkgd=self.cfg.white_bkgd,
-            grid_hw=(H, W) if grid else None)
+            grid_hw=(H, W) if grid else None, window=window)
+
+    def render_hw(self, level, batch):
+        """The (H, W) render frame of ``level``."""
+        rs = self.cfg.cas_config.render_scale[level]
+        H_O, W_O = batch["src_inps"].shape[2:4]
+        return int(H_O * rs), int(W_O * rs)
+
+
+def fpn_features(feature_net: FeatureNet, src_inps: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """``feature_net``'s three levels for all source views (B, S, H, W, 3),
+    NHWC: ``level_0`` at 1/4, ``level_1`` at 1/2, ``level_2`` at full
+    resolution."""
+    B, S, H, W, C = src_inps.shape
+    feat2, feat1, feat0 = feature_net(src_inps.reshape(B * S, H, W, C))
+    return {
+        "level_2": feat0.reshape(B, S, H, W, feat0.shape[-1]),
+        "level_1": feat1.reshape(B, S, H // 2, W // 2, feat1.shape[-1]),
+        "level_0": feat2.reshape(B, S, H // 4, W // 4, feat2.shape[-1]),
+    }
+
+
+def image_features(cas, level: int, feats: Dict[str, torch.Tensor],
+                   src_inps: torch.Tensor) -> torch.Tensor:
+    """The level's image features ‖ source rgb at render scale,
+    (B, S, H, W, C + 3); ``cas`` the cascade config."""
+    rgbs = unpreprocess(src_inps, render_scale=cas.render_scale[level])
+    im_feat = feats[f"level_{cas.render_im_feat_level[level]}"]
+    up_feat_scale = cas.render_scale[level] / cas.im_ibr_scale[level]
+    if up_feat_scale != 1.0:
+        h, w = im_feat.shape[2:4]
+        im_feat = resize_bilinear(im_feat, (scale_size(h, up_feat_scale),
+                                            scale_size(w, up_feat_scale)))
+    return torch.cat([im_feat, rgbs], dim=-1)

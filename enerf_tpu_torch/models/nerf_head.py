@@ -65,26 +65,36 @@ class Agg(nn.Module):
 
 
 class NeRFHead(nn.Module):
+    """``use_vox_feat=False`` is the head of the composite model
+    (``nerf_.py`` in the reference): sigma reads the 16-channel aggregate
+    only, so ``lr0`` takes 16 inputs and ``color.0`` loses the vox ones, and
+    ``vox_feat`` may be None."""
+
     def __init__(self, feat_ch: int, hid_n: int = 64, viewdir_agg: bool = True,
-                 vox_ch: int = 8):
+                 vox_ch: int = 8, use_vox_feat: bool = True):
         super().__init__()
         self.feat_ch = feat_ch
         self.viewdir_agg = viewdir_agg
+        self.use_vox_feat = use_vox_feat
+        in_ch = (vox_ch if use_vox_feat else 0) + 16
         self.agg = Agg(feat_ch, viewdir_agg)
-        self.lr0 = LinearReLU(vox_ch + 16, hid_n)
+        self.lr0 = LinearReLU(in_ch, hid_n)
         self.sigma = nn.Sequential(nn.Linear(hid_n, 1), nn.Softplus())
         self.color = nn.Sequential(
-            nn.Linear(hid_n + vox_ch + 16 + feat_ch + 4, hid_n), nn.ReLU(),
+            nn.Linear(hid_n + in_ch + feat_ch + 4, hid_n), nn.ReLU(),
             nn.Linear(hid_n, 1), nn.ReLU())
 
-    def forward(self, vox_feat: torch.Tensor, img_feat_rgb_dir: torch.Tensor,
+    def forward(self, vox_feat: Optional[torch.Tensor],
+                img_feat_rgb_dir: torch.Tensor,
                 view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """vox_feat (B, P, 8); img_feat_rgb_dir (B, P, S, feat_ch + 4);
-        view_mask optional (B, S). Returns (B, P, 4) = rgb ‖ sigma."""
+        """vox_feat (B, P, 8) (ignored without ``use_vox_feat``);
+        img_feat_rgb_dir (B, P, S, feat_ch + 4); view_mask optional (B, S).
+        Returns (B, P, 4) = rgb ‖ sigma."""
         B, P, S = img_feat_rgb_dir.shape[:3]
         vm = None if view_mask is None else (view_mask[:, None, :, None] != 0)
         img_feat = self.agg(img_feat_rgb_dir, vm)
-        vox_img_feat = torch.cat([vox_feat, img_feat], dim=-1)
+        vox_img_feat = (torch.cat([vox_feat, img_feat], dim=-1)
+                        if self.use_vox_feat else img_feat)
         x = self.lr0(vox_img_feat)
         sigma = self.sigma(x)
         x = torch.cat([x, vox_img_feat], dim=-1)

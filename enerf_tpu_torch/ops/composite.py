@@ -1,5 +1,5 @@
 """Alpha compositing of per-sample radiance; counterpart of
-``raw2outputs`` in ``enerf_tpu/ops/composite.py``.
+``_exclusive_cumprod`` and ``raw2outputs`` in ``enerf_tpu/ops/composite.py``.
 
 ENeRF's peculiarities: alpha = 1 - exp(-sigma) with **no dists term**
 (samples are depth-guided), and the depth map is softmax(weights)·z, not
@@ -14,6 +14,13 @@ from typing import Dict, Optional
 import torch
 
 
+def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """cumprod over the last axis shifted right by one, with a leading 1
+    (the transmittance)."""
+    cp = torch.cumprod(x, dim=-1)[..., :-1]
+    return torch.cat([torch.ones_like(x[..., :1]), cp], dim=-1)
+
+
 def raw2outputs(raw: torch.Tensor, z_vals: Optional[torch.Tensor],
                 white_bkgd: bool = False) -> Dict[str, torch.Tensor]:
     """raw (B, N, n, 4) = rgb(3)‖sigma(1); z_vals (B, N, n).
@@ -21,9 +28,7 @@ def raw2outputs(raw: torch.Tensor, z_vals: Optional[torch.Tensor],
     Returns {'rgb' (B, N, 3), 'depth' (B, N), 'weights' (B, N, n)}."""
     alpha = 1.0 - torch.exp(-raw[..., 3])
     rgb = raw[..., :3]
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
-    T = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
-    weights = alpha * T
+    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
     out = {"rgb": rgb_map, "weights": weights}
     if z_vals is not None:

@@ -10,7 +10,7 @@ import torch
 
 from enerf_tpu_torch.ops.camera import cam_centers, scale_intrinsics
 from enerf_tpu_torch.ops.sampling import (
-    bilinear_sample_2d_view_last,
+    bilinear_sample_2d_multi,
     resize_bilinear,
     scale_size,
     trilinear_sample_3d_multi,
@@ -30,7 +30,7 @@ def get_vox_feat(uvd: torch.Tensor, feature_volume: torch.Tensor) -> torch.Tenso
 
 
 def get_vox_feat_grid(feat_volume: torch.Tensor, d: torch.Tensor,
-                      out_hw) -> torch.Tensor:
+                      out_hw, window=None) -> torch.Tensor:
     """Trilinear volume sampling when the rays are the FULL raster grid:
     an align-corners spatial resize of the volume to the render size, then
     a tent-weighted contraction over the D planes (the tent is the
@@ -39,10 +39,16 @@ def get_vox_feat_grid(feat_volume: torch.Tensor, d: torch.Tensor,
     rays.
 
     feat_volume (B, D, Hv, Wv, C); d (B, N) volume-normalized depth, N =
-    H*W*n ray-major. Returns (B, N, C)."""
+    H*W*n ray-major. ``window``, an ``ops.window.Window`` of the ``out_hw``
+    frame: the rays are the raster sub-grid of that (wh, ww) window, and
+    N = wh*ww*n. Returns (B, N, C)."""
     B, D, Hv, Wv, C = feat_volume.shape
     H, W = out_hw
-    vol = resize_bilinear(feat_volume, (H, W)).reshape(B, D, H * W, C)
+    vol = resize_bilinear(feat_volume, (H, W))
+    if window is not None:
+        vol = window.crop(vol, planes=True)
+        H, W = window.hw
+    vol = vol.reshape(B, D, H * W, C)
     n = d.shape[1] // (H * W)
     z = d.reshape(B, H * W, n) * (D - 1)
     ks = torch.arange(D, dtype=z.dtype, device=z.device)
@@ -72,10 +78,13 @@ def get_img_feat(world_xyz: torch.Tensor, img_feat_rgb: torch.Tensor,
     img_pts = torch.einsum("bpsd,bsed->bpse", cam_pts, ixt)
     z = torch.clamp(img_pts[..., 2:], min=1e-6)
     grid = img_pts[..., :2] / z                        # (B, P, S, 2)
-    feat = torch.stack([
-        bilinear_sample_2d_view_last(img_feat_rgb[b], grid[b, ..., 0],
-                                     grid[b, ..., 1], padding_mode="border")
-        for b in range(B)])                            # (B, P, S, C)
+    S, C = img_feat_rgb.shape[1], img_feat_rgb.shape[-1]
+    feat = bilinear_sample_2d_multi(
+        img_feat_rgb.reshape(B * S, *img_feat_rgb.shape[2:]),
+        torch.movedim(grid[..., 0], -1, 1).reshape(B * S, -1),
+        torch.movedim(grid[..., 1], -1, 1).reshape(B * S, -1),
+        padding_mode="border")
+    feat = torch.movedim(feat.reshape(B, S, -1, C), 1, 2)  # (B, P, S, C)
 
     tar_diff = xyz - tar_cam[:, None]
     src_diff = xyz[:, :, None] - src_cam[:, None]

@@ -63,7 +63,7 @@ def render_rays_plain(world_xyz: torch.Tensor, uvd: torch.Tensor,
                       src_ixts: torch.Tensor, tar_ext: torch.Tensor,
                       view_mask: Optional[torch.Tensor], head, *,
                       render_scale: float, white_bkgd: bool = False,
-                      grid_hw: Optional[Tuple[int, int]] = None
+                      grid_hw: Optional[Tuple[int, int]] = None, window=None
                       ) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version: ``get_img_feat`` + vox features
     (``get_vox_feat_grid`` on grid rays, else ``get_vox_feat``) + the
@@ -71,7 +71,7 @@ def render_rays_plain(world_xyz: torch.Tensor, uvd: torch.Tensor,
     B, N, n, _ = world_xyz.shape
     if grid_hw is not None:
         vox = get_vox_feat_grid(feat_volume, uvd.reshape(B, -1, 3)[..., 2],
-                                grid_hw)
+                                grid_hw, window=window)
     else:
         vox = get_vox_feat(uvd.reshape(B, -1, 3), feat_volume)
     img_feat_rgb_dir = get_img_feat(world_xyz, img_feat_rgb, src_exts,
@@ -86,7 +86,7 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
                 src_ixts: torch.Tensor, tar_ext: torch.Tensor,
                 view_mask: Optional[torch.Tensor], head, *,
                 render_scale: float, white_bkgd: bool = False,
-                grid_hw: Optional[Tuple[int, int]] = None
+                grid_hw: Optional[Tuple[int, int]] = None, window=None
                 ) -> Dict[str, torch.Tensor]:
     """Shade and composite the depth-guided samples of one cascade level.
 
@@ -96,10 +96,11 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
     feat_volume (B, D, Hv, Wv, Cv); src_exts (B, S, 4, 4); src_ixts
     (B, S, 3, 3) unscaled; tar_ext (B, 4, 4); view_mask (B, S) or None;
     head the level's NeRFHead. ``grid_hw``: the rays are the (H, W) raster
-    grid (the plain version then samples the volume by resize + tent; the
-    kernel samples it trilinearly at uvd either way, which is the same
-    function). Returns {'rgb' (B, N, 3), 'depth' (B, N), 'weights'
-    (B, N, n)}.
+    grid, or with ``window`` (an ``ops.window.Window`` of that frame) the
+    raster sub-grid of the window (the plain version then samples the
+    volume by resize + tent; the kernel samples it trilinearly at uvd
+    either way, which is the same function). Returns {'rgb' (B, N, 3),
+    'depth' (B, N), 'weights' (B, N, n)}.
 
     The kernel has no backward: with gradients enabled, an input or a head
     parameter that requires one raises ``ValueError`` on every device
@@ -112,7 +113,8 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
         return render_rays_plain(world_xyz, uvd, z_vals, img_feat_rgb,
                                  feat_volume, src_exts, src_ixts, tar_ext,
                                  view_mask, head, render_scale=render_scale,
-                                 white_bkgd=white_bkgd, grid_hw=grid_hw)
+                                 white_bkgd=white_bkgd, grid_hw=grid_hw,
+                                 window=window)
     return _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume,
                    src_exts, src_ixts, tar_ext, view_mask, head,
                    render_scale, white_bkgd)
@@ -131,7 +133,8 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
         "render kernel is built for Cf={}, Cv={}, n={}, S in {}; got Cf={}, "
         "Cv={}, n={}, S={}", KERNEL_CF, KERNEL_CV, KERNEL_NS, KERNEL_S, Cf,
         Cv, n, S)
-    req(head.viewdir_agg, "render kernel needs a NeRFHead with viewdir_agg")
+    req(head.viewdir_agg and head.use_vox_feat,
+        "render kernel needs a NeRFHead with viewdir_agg and use_vox_feat")
     if view_mask is None:
         view_mask = torch.ones(B, S, dtype=torch.float32, device=dev)
     view_mask = view_mask.to(torch.float32)

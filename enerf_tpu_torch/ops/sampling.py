@@ -58,17 +58,6 @@ def bilinear_sample_2d_multi(imgs: torch.Tensor, x: torch.Tensor,
     return out[:, :, 0].permute(0, 2, 1).reshape(*lead, C)
 
 
-def bilinear_sample_2d_view_last(imgs: torch.Tensor, x: torch.Tensor,
-                                 y: torch.Tensor,
-                                 padding_mode: str = "zeros") -> torch.Tensor:
-    """Like ``bilinear_sample_2d_multi`` but coords are (..., V) with the
-    view axis last; returns (..., V, C)."""
-    xs = torch.movedim(x, -1, 0)
-    ys = torch.movedim(y, -1, 0)
-    return torch.movedim(bilinear_sample_2d_multi(imgs, xs, ys, padding_mode),
-                         0, -2)
-
-
 def trilinear_sample_3d_multi(vols: torch.Tensor, x: torch.Tensor,
                               y: torch.Tensor, z: torch.Tensor,
                               padding_mode: str = "zeros") -> torch.Tensor:

@@ -96,6 +96,92 @@ def test_cost_volume_kernel_ragged_and_padded(cuda, C, D, Ht, Wt, n_src):
                                atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,origins,hw,n_src", [
+    (1, [(5, 3)], (16, 24), 3),            # inside the frame
+    (1, [(40, 20)], (16, 24), 3),          # across the right and bottom edges
+    (0, [(-3, 2)], (5, 7), 3),             # a negative origin, ragged window
+    (1, [(7, 9), (30, 0)], (13, 21), 2),   # B = 2, an origin each; padded view
+])
+def test_cost_volume_kernel_crop_mode(cuda, level, origins, hw, n_src):
+    """K1's crop-window mode: the window's depth planes from its origin
+    clamped into the frame, its warp from the unclamped origin."""
+    B = len(origins)
+    g = torch.Generator().manual_seed(20 + level + B)
+    b = _batch(n_src, cuda)
+    C, s, vs, D = ((32, 0.25, 0.125, 32), (16, 0.5, 0.5, 8))[level]
+    feats = torch.randn(B, 3, int(H * s), int(W * s), C, generator=g).to(cuda)
+    projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
+                          b["tar_ixt"], src_scale=s, tar_scale=vs).expand(
+                              B, -1, -1, -1).contiguous()
+    Ht, Wt = int(H * vs), int(W * vs)
+    dv = (3.0 + torch.rand(B, D, Ht, Wt, generator=g)).to(cuda)
+    vm = b["view_mask"].expand(B, -1).contiguous()
+    window = (torch.tensor(origins, dtype=torch.int32).to(cuda), hw)
+    before = kcv.launches
+    out = kcv.fused_cost_volume(feats, projs, dv, vm, window=window)
+    assert kcv.launches == before + 1
+    assert out.shape == (B, D) + hw + (C,)
+    torch.testing.assert_close(
+        out, kcv.cost_volume_plain(feats, projs, dv, vm, window=window),
+        rtol=1e-4, atol=1e-4)
+
+
+def _plain_path(monkeypatch):
+    """Every kernel wrapper of the model's path swapped for its plain
+    version."""
+    import enerf_tpu_torch.models.enerf as enerf_mod
+    import enerf_tpu_torch.ops.depth as depth_mod
+    import enerf_tpu_torch.ops.warp as warp_mod
+
+    monkeypatch.setattr(warp_mod, "fused_cost_volume", kcv.cost_volume_plain)
+    monkeypatch.setattr(enerf_mod, "render_rays", krender.render_rays_plain)
+    monkeypatch.setattr(depth_mod, "kernel_depth_regression",
+                        kdr.depth_regression_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["human", "composite"])
+def test_variant_frame_kernel_vs_plain_path(cuda, monkeypatch, variant):
+    """The human frame (window mode) and the composite frame at 128x160
+    through ``build_model`` / ``render``: their kernel launches, and the
+    kernel path vs the plain path (tolerances of ``tests/test_torch_enerf.py``)."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import (
+        composite_eval_config,
+        human_eval_config,
+        human_mask,
+    )
+    from enerf_tpu_torch.datasets.synthetic import make_composite_batch
+
+    Hs, Ws = 128, 160
+    if variant == "human":
+        cfg = human_eval_config()
+        # the mask's rows 17..110 and columns 46..112; origin (32, 16)
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, mask_window_hw=(96, 96)))
+        batch = make_synthetic_batch(cfg, H=Hs, W=Ws)
+        batch["mask_at_box"] = human_mask(Hs, Ws)
+        per_frame = (2, 1, 2)
+    else:
+        cfg = composite_eval_config()
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, fg_bbox_hw=(64, 64)))
+        batch = make_composite_batch(cfg, H=Hs, W=Ws)
+        per_frame = (4, 0, 4)
+    model = et.build_model(cfg, seed=3)
+    before = (kcv.launches, krender.launches, kdr.launches)
+    out = et.render(model, batch)
+    assert tuple(a - b for a, b in zip(
+        (kcv.launches, krender.launches, kdr.launches), before)) == per_frame
+    _plain_path(monkeypatch)
+    ref = et.render(model, batch)
+    assert set(out) == set(ref)
+    for k in out:
+        atol = 3e-3 if k.startswith(("depth", "std")) else 3e-4
+        torch.testing.assert_close(out[k], ref[k], rtol=1e-3, atol=atol)
+
+
 def _render_case(cuda, n_src, slots=3, seed=None, cut=0):
     """The level-1 render stage's inputs on grid rays of a synthetic frame,
     the last ``cut`` rays dropped (then no longer a grid)."""

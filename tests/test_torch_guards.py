@@ -25,8 +25,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "enerf_tpu")
 
 
 def test_no_jax_import_in_subprocess():
-    """Build and run the model on the CPU in a fresh interpreter, then
-    check that nothing of JAX, flax or enerf_tpu was imported."""
+    """Build and run the models (the DTU cascade, the human and the
+    composite variants) on the CPU in a fresh interpreter, then check that
+    nothing of JAX, flax or enerf_tpu was imported."""
     code = (
         "import sys\n"
         "import enerf_tpu_torch as et\n"
@@ -37,6 +38,23 @@ def test_no_jax_import_in_subprocess():
         "cfg = dtu_eval_config()\n"
         "out = et.render(et.build_model(cfg, device='cpu'),\n"
         "                make_synthetic_batch(cfg, H=64, W=96))\n"
+        "assert out['rgb_level1'].shape == (1, 64 * 96, 3)\n"
+        "import dataclasses\n"
+        "from enerf_tpu_torch.config import human_eval_config, human_mask\n"
+        "from enerf_tpu_torch.config import composite_eval_config\n"
+        "from enerf_tpu_torch.datasets.synthetic import make_composite_batch\n"
+        "cfg = human_eval_config()\n"
+        "cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(\n"
+        "    cfg.enerf, mask_window_hw=(32, 32)))\n"
+        "b = dict(make_synthetic_batch(cfg, H=64, W=96),\n"
+        "         mask_at_box=human_mask(64, 96))\n"
+        "out = et.render(et.build_model(cfg, device='cpu'), b)\n"
+        "assert out['rgb_level1'].shape == (1, 64 * 96, 3)\n"
+        "cfg = composite_eval_config()\n"
+        "cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(\n"
+        "    cfg.enerf, fg_bbox_hw=(32, 32)))\n"
+        "out = et.render(et.build_model(cfg, device='cpu'),\n"
+        "                make_composite_batch(cfg, H=64, W=96))\n"
         "assert out['rgb_level1'].shape == (1, 64 * 96, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         f"             {FORBIDDEN!r})\n"
@@ -83,7 +101,8 @@ def test_kernel_loader_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build_all()
 
 
-@pytest.mark.parametrize("kernel", ["cost_volume", "render"])
+@pytest.mark.parametrize("kernel", ["cost_volume", "cost_volume_crop",
+                                    "render"])
 def test_wrappers_raise_off_cpu(kernel):
     """A tensor that is not on the CPU never takes the plain path: off a
     CUDA device the wrapper raises instead of computing. (Under no_grad: the
@@ -92,10 +111,15 @@ def test_wrappers_raise_off_cpu(kernel):
     meta = dict(device="meta", dtype=torch.float32)
     before = (kcv.launches, krender.launches)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        if kernel == "cost_volume":
+        if kernel.startswith("cost_volume"):
+            window = None
+            if kernel == "cost_volume_crop":
+                window = (torch.zeros(1, 2, dtype=torch.int32,
+                                      device="meta"), (4, 4))
             kcv.fused_cost_volume(torch.empty(1, 3, 8, 8, 16, **meta),
                                   torch.empty(1, 3, 3, 4, **meta),
-                                  torch.empty(1, 4, 8, 8, **meta))
+                                  torch.empty(1, 4, 8, 8, **meta),
+                                  window=window)
         else:
             from enerf_tpu_torch.models.nerf_head import NeRFHead
 
@@ -143,3 +167,41 @@ def test_synthetic_batch_copy_matches_jax(n_src):
         # with the equal numpy average pool (float rounding apart)
         np.testing.assert_allclose(port[k], ref[k], rtol=1e-6, atol=1e-6,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("variant,split", [("", "test"), ("human", "test"),
+                                           ("human", "train"),
+                                           ("composite", "test")])
+def test_synthetic_dataset_copy_matches_jax(variant, split):
+    """The port's ``Dataset`` (and ``make_composite_batch``) give the JAX
+    package's samples for each variant."""
+    from enerf_tpu.config import CascadeConfig, Config, DatasetConfig, ENeRFConfig
+    from enerf_tpu.datasets import synthetic as jsyn
+    from enerf_tpu_torch.config import composite_eval_config
+    from enerf_tpu_torch.config import DatasetConfig as PDatasetConfig
+    from enerf_tpu_torch.datasets import synthetic as psyn
+
+    jcfg = Config(enerf=ENeRFConfig(
+        test_input_views=3, train_input_views=(2, 3), num_fg_layers=2,
+        fg_bbox_hw=(16, 24), cas_config=CascadeConfig(volume_planes=(48, 8))))
+    pcfg = dataclasses.replace(composite_eval_config(), enerf=dataclasses.replace(
+        composite_eval_config().enerf, num_fg_layers=2, fg_bbox_hw=(16, 24),
+        viewdir_agg=True, cas_config=dataclasses.replace(
+            composite_eval_config().enerf.cas_config, volume_planes=(48, 8),
+            num_samples=(8, 2), render_if=(True, True))))
+    extra = (("variant", variant), ("length", 4))
+    ref = jsyn.Dataset(jcfg, DatasetConfig(split=split, input_h_w=(32, 48),
+                                           extra=extra))[(2, 2)]
+    port = psyn.Dataset(pcfg, PDatasetConfig(split=split, input_h_w=(32, 48),
+                                             extra=extra))[(2, 2)]
+    assert set(port) == set(ref) and port.pop("meta") == ref.pop("meta")
+    for k in ref:
+        np.testing.assert_allclose(port[k], ref[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+    if variant == "composite":
+        ref = jsyn.make_composite_batch(jcfg, H=32, W=48, batch_size=2)
+        port = psyn.make_composite_batch(pcfg, H=32, W=48, batch_size=2)
+        assert set(port) == set(ref)
+        for k in ref:
+            np.testing.assert_allclose(port[k], ref[k], rtol=1e-6, atol=1e-6,
+                                       err_msg=k)

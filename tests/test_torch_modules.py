@@ -56,6 +56,32 @@ def jax_variables(module, rng, *args):
     return randomize_batch_stats(to_numpy_tree(variables), rng)
 
 
+def seeded_variables(module, rng, *args):
+    """``module``'s variables tree (its init's shapes, traced with
+    ``jax.eval_shape``: nothing is compiled) filled from ``rng``: kernels
+    N(0, 2 / fan_in), biases 0.05 N(0, 1), BN scales 1 + 0.1 N(0, 1), BN
+    running statistics as ``randomize_batch_stats``. A numpy tree."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+
+    def fill(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict) or hasattr(v, "items"):
+                out[k] = fill(v)
+                continue
+            x = rng.randn(*v.shape)
+            if k == "kernel":
+                x = x * np.sqrt(2.0 / max(np.prod(v.shape[:-1]), 1))
+            elif k == "scale":
+                x = 1.0 + 0.1 * x
+            else:
+                x = 0.05 * x
+            out[k] = x.astype(np.float32)
+        return out
+
+    return randomize_batch_stats(fill(shapes), rng)
+
+
 def test_feature_net():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 32, 48, 3).astype(np.float32)
@@ -87,20 +113,30 @@ def test_cost_reg(net):
     np.testing.assert_allclose(depth.numpy(), np.asarray(depth_ref), **TOL)
 
 
-@pytest.mark.parametrize("feat_ch,masked", [(11, False), (11, True), (35, True)])
-def test_nerf_head(feat_ch, masked):
+@pytest.mark.parametrize("feat_ch,masked,vox", [
+    pytest.param(11, False, True, id="11-False"),
+    pytest.param(11, True, True, id="11-True"),
+    pytest.param(35, True, True, id="35-True"),
+    # the composite's head: no vox feature, no view-direction aggregation
+    pytest.param(11, True, False, id="11-True-no_vox")])
+def test_nerf_head(feat_ch, masked, vox):
     rng = np.random.RandomState(2)
     B, P, S = 2, 50, 3
-    vox = rng.randn(B, P, 8).astype(np.float32)
+    vox_feat = rng.randn(B, P, 8).astype(np.float32)
     img = rng.randn(B, P, S, feat_ch + 4).astype(np.float32)
     vm = np.array([[1, 1, 0], [1, 1, 1]], np.float32) if masked else None
-    jm = JNeRFHead(feat_ch=feat_ch, viewdir_agg=True)
-    variables = jax_variables(jm, rng, vox, img)
-    ref = jm.apply(variables, jnp.asarray(vox), jnp.asarray(img),
+    jm = JNeRFHead(feat_ch=feat_ch, viewdir_agg=vox, use_vox_feat=vox)
+    variables = jax_variables(jm, rng, vox_feat, img)
+    ref = jm.apply(variables, jnp.asarray(vox_feat), jnp.asarray(img),
                    None if vm is None else jnp.asarray(vm))
-    port = load_flax_variables(NeRFHead(feat_ch).eval(), variables)
+    port = load_flax_variables(
+        NeRFHead(feat_ch, viewdir_agg=vox, use_vox_feat=vox).eval(), variables)
+    if not vox:   # lr0 and color.0 lose the 8 vox inputs
+        assert port.lr0[0].in_features == 16
+        assert port.color[0].in_features == 64 + 16 + feat_ch + 4
     with torch.no_grad():
-        out = port(torch.from_numpy(vox), torch.from_numpy(img),
+        out = port(torch.from_numpy(vox_feat) if vox else None,
+                   torch.from_numpy(img),
                    None if vm is None else torch.from_numpy(vm))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=1e-5)
