@@ -14,10 +14,17 @@ Phases, each printing one JSON line:
   k1_crop  its crop-window mode: the composite frame's fg windows at both
            levels, a window across the frame's edge, a negative origin, a
            ragged window, a batch of 2
-  k2       the render kernel vs its plain version at 327,680 rays, n=2:
-           S=3, a padded view, S=2, S=4, a ray count that leaves a ragged
-           warp tile, and a white background; the human window's 86,016
-           rays at S=2; times as for k1
+  k2       the render kernel of level 1's head (csrc/render.cu) vs its plain
+           version at 327,680 rays, n=2: S=3, a padded view, S=2, S=4, a
+           ray count that leaves a ragged warp tile, and a white
+           background; the human window's 86,016 rays at S=2; times as
+           for k1
+  k2_l0    the render kernel of level 0's head (csrc/render_l0.cu: 32 FPN
+           channels + rgb, n=8) vs its plain version at a 512x640 frame's
+           20,480 level-0 rays: S=3, a padded view, S=2, S=4, a ragged ray
+           count, a white background; times as for k1, beside its bound
+           (three TF32 passes on the tensor cores, as for k2: the card's
+           f32-accurate rate for these products) and its f32 CUDA-core one
   frames   the DTU eval forward (512x640, 3 source views, volume planes
            (48, 8), render_if (False, True), grid rays, seeded random
            weights) through ``build_model`` / ``render``: per-frame and
@@ -38,6 +45,14 @@ Phases, each printing one JSON line:
            window and one across the frame's edge; then
            ``composite_profile`` and ``composite_kernels`` (as
            ``human_kernels``)
+  val      the val main path: ``Trainer.val`` of the port's default cascade
+           (``Config()``: planes (64, 8), num_samples (8, 2), render_if
+           (True, True), grid rays) over 11 synthetic 512x640 frames,
+           scored by ``make_evaluator(cfg)`` (PSNR, SSIM, LPIPS on seeded
+           random weights): frame and stage times (first frame excluded),
+           launches a frame, the metric dict; the kernel path vs the plain
+           path, the card vs the CPU at 128x160; then ``val_profile`` and
+           ``val_kernels`` (as ``human_kernels``)
   k4       the depth-regression kernel vs its plain version, forward and
            gradient, at the train shapes of both cascade levels and the
            eval level-0 shape, then 5 planes over a ragged pixel count, a
@@ -57,9 +72,9 @@ Phases, each printing one JSON line:
            128x160 step on the card vs the same step on the CPU
   train_profile  torch.profiler over two train steps
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
-path: frames, human, composite, train; its calls of a human and a
-composite frame in ``per_frame_by_path``), the nvidia-smi line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failure exits
+path: frames, human, composite, val, train; its calls of a human, a
+composite and a val frame in ``per_frame_by_path``), the nvidia-smi line,
+and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Float32 throughout, TF32 off. A bound
 counts each input read once and each output written once; K1's source
 features only where its voxels' bilinear footprints touch them
@@ -92,8 +107,9 @@ TF32_PASSES = 3                # K2 splits every f32 product in three
 # to a few 1e-4
 K1_TOL = dict(rtol=1e-4, atol=1e-3)
 K2_TOL = dict(rtol=1e-4, atol=2e-4)
-E2E_ATOL = {"rgb_level1": 3e-4, "weights_level1": 3e-4, "depth_level1": 3e-3,
-            "depth_mvs_level1": 3e-3, "std_level1": 3e-3}
+E2E_ATOL = {f"{k}_level{i}": a for i in (0, 1) for k, a in (
+    ("rgb", 3e-4), ("weights", 3e-4), ("depth", 3e-3), ("depth_mvs", 3e-3),
+    ("std", 3e-3))}
 E2E_RTOL = 1e-3
 # K4: the kernel sums Σe·v / Σe over plane groups merged by Chan's update,
 # the plain version softmax-then-sum in torch's reduction order (f32, 5-64
@@ -103,9 +119,22 @@ K4_TOL = dict(rtol=1e-4, atol=1e-6)
 # bf16 tolerances): one rounding of an f32 result, summed in another order
 K4_BF16_TOL = {"depth": dict(rtol=1e-2, atol=0.0),
                "std": dict(rtol=2e-2, atol=1e-3)}
-# kernel launches a frame on the variants' main paths
-HUMAN_PER_FRAME = {"cost_volume": 2, "render": 1, "depth_regression": 2}
-COMPOSITE_PER_FRAME = {"cost_volume": 4, "render": 0, "depth_regression": 4}
+# kernel launches a frame (or a train step) on each main path; "render" is
+# csrc/render.cu (level 1's head), "render_l0" csrc/render_l0.cu (level 0's)
+FRAMES_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
+                    "depth_regression": 2}
+HUMAN_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
+                   "depth_regression": 2}
+COMPOSITE_PER_FRAME = {"cost_volume": 4, "render": 0, "render_l0": 0,
+                       "depth_regression": 4}
+VAL_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 1,
+                 "depth_regression": 2}
+# the val main path: Trainer.val over this many frames, the first excluded
+# from the times (as many timed frames as the other frame phases)
+VAL_BATCHES = 1 + TIMED_FRAMES
+LIBRARY_NONE_RENDER = ("no single PyTorch call computes the IBR head "
+                       "(projection, bilinear gather, Agg, MLPs) and the "
+                       "compositing")
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10      # timed steps of the train main path
 # the card vs the CPU on a small train step: f32 with TF32 off on both, but
@@ -227,14 +256,17 @@ def k1_work(torch, feats, projs, dv, vm, out, window=None):
 def k2_work(args, out):
     """The bytes and operations of one render call: its ray and sample
     inputs, the image features and volume once, its outputs once; per
-    sample and valid view view_fc, global_fc, agg_w_fc and color_0's 15
+    sample and valid view view_fc, global_fc, agg_w_fc and color_0's Cf + 4
     per-view inputs + color_2, once per sample fc, lr0, sigma and
-    color_0's 88 shared inputs (multiply-adds, 2 operations each)."""
+    color_0's 88 shared inputs (multiply-adds, 2 operations each): per
+    view 2,156 at Cf = 11 (level 1), 6,092 at Cf = 35 (level 0); per
+    sample 7,744 at both."""
     xyz, uvd, z, img, vol = args[:5]
     vm = args[8]
     B, N, n = xyz.shape[:3]
+    cf = img.shape[-1]
     n_valid = float(vm.sum()) if vm is not None else float(B * img.shape[1])
-    per_view = 4 * 11 + 33 * 32 + 32 + 15 * 64 + 64
+    per_view = 4 * cf + 3 * cf * 32 + 32 + (cf + 4) * 64 + 64
     shared = 32 * 16 + 24 * 64 + 64 + 88 * 64
     macs = (n_valid * per_view + B * shared) * N * n
     io = nbytes(xyz, uvd, z, img, vol, out["rgb"], out["depth"],
@@ -265,15 +297,27 @@ def ptxas_summary(log: str) -> list:
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            sym = ln.split("'")[1]
-            m = re.search(r"[a-z_]*_kernel\w*", sym)
-            name = m.group(0) if m else sym
+            name = kernel_symbol(ln.split("'")[1])
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and name:
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
             name, spill = None, ""
     return out
+
+
+def kernel_symbol(sym: str) -> str:
+    """The kernel's name and template arguments from a mangled symbol: the
+    identifier ending in ``_kernel`` whose length prefix matches it (the
+    digits before it may run into a hash of the file's path)."""
+    for m in re.finditer(r"\d+", sym):
+        digits = m.group(0)
+        for k in range(len(digits)):
+            n = int(digits[k:])
+            ident = sym[m.end():m.end() + n]
+            if n and len(ident) == n and ident.endswith("_kernel"):
+                return ident + sym[m.end() + n:]
+    return sym
 
 
 def phase_build():
@@ -500,6 +544,82 @@ def phase_k2(torch, cfg):
     return cases
 
 
+def phase_k2_l0(torch, cfg):
+    """The level-0 render kernel (csrc/render_l0.cu) vs the plain version
+    at level 0's head shape (32 FPN channels + rgb, 8 samples in
+    disparity, a 64-plane volume at 64x80) over the 20,480 grid rays of a
+    512x640 frame's level 0 (128x160, render scale 1/4): S = 3, a padded
+    view, S = 2, S = 4, a ray count that is no longer a grid (the last 5
+    rays dropped), a white background; times as for k2, beside the same
+    bound as k2's (the head's products in three TF32 passes on the tensor
+    cores, the fastest f32-accurate rate the card has for them) and the f32
+    CUDA-core one (the rate of the kernel's present route)."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.models.layers import init_weights
+    from enerf_tpu_torch.models.nerf_head import NeRFHead
+    from enerf_tpu_torch.ops.ibr import unpreprocess
+    from enerf_tpu_torch.ops.kernels import render as krender
+    from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
+
+    g = torch.Generator().manual_seed(8)
+    head = NeRFHead(35)
+    init_weights(head, g, kaiming_linear=True)
+    head = head.eval().cuda()
+    h, w = H // 4, W // 4
+    Hv, Wv = H // 8, W // 8
+    cases = []
+    for name, slots, n_src, cut, white in (
+            ("level0_s3", 3, 3, 0, False), ("padded_view", 3, 2, 0, False),
+            ("s2", 2, 2, 0, False), ("s4", 4, 4, 0, False),
+            ("ragged", 3, 3, 5, False), ("white_bkgd", 3, 3, 0, True)):
+        b = et.to_device(_synthetic(cfg, n_src, slots), "cuda")
+        depth = (1 / (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g))).cuda()
+        std = (0.005 + 0.02 * torch.rand(1, Hv, Wv, generator=g)).cuda()
+        nf = torch.stack([torch.full((1, Hv, Wv), 1 / 2.5),
+                          torch.full((1, Hv, Wv), 1 / 5.5)], 1).cuda()
+        rays = build_rays(b["rays_0"], depth, std, nf, True, 2.0, grid=True)
+        xyz, uvd, z = sample_along_depth(rays, 8, True)
+        uvd = uvd * torch.tensor([1 / (w - 1), 1 / (h - 1), 1.0], device="cuda")
+        img = torch.cat([torch.randn(1, slots, h, w, 32, generator=g).cuda(),
+                         unpreprocess(b["src_inps"], 0.25)], -1).contiguous()
+        vol = torch.randn(1, 64, Hv, Wv, 8, generator=g).cuda()
+        if cut:
+            n = xyz.shape[1] - cut
+            xyz, uvd, z = (t[:, :n].contiguous() for t in (xyz, uvd, z))
+        args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"],
+                b["tar_ext"], b["view_mask"], head)
+        kw = dict(render_scale=0.25, grid_hw=None if cut else (h, w),
+                  white_bkgd=white)
+        with torch.inference_mode():
+            plain = krender.render_rays_plain(*args, **kw)
+            before = krender.launches["render_l0"]
+            out = krender.render_rays(*args, **kw)
+            torch.cuda.synchronize()
+            if krender.launches["render_l0"] != before + 1:
+                fail(f"k2_l0 {name}: the wrapper did not launch render_l0")
+            err = max(max_err(torch, out[k], plain[k],
+                              what=f"k2_l0 {name} {k}", **K2_TOL)
+                      for k in ("rgb", "depth", "weights"))
+            call = lambda: krender.render_rays(*args, **kw)  # noqa: E731
+            t_k = time_ms(torch, call)
+            t_run = run_ms(torch, call, n=20)
+            t_dev = device_kernel_ms(torch, call, "render_l0_kernel")
+            t_p = time_ms(torch, lambda: krender.render_rays_plain(*args, **kw),
+                          reps=5, warmup=1)
+        io, flops, macs = k2_work(args, out)
+        bd, by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
+        bd_f32, by_f32 = bound_ms(io, flops)
+        case = dict(case=name, slots=slots, rays=xyz.shape[1],
+                    views_valid=float(b["view_mask"].sum()), white_bkgd=white,
+                    max_abs_err=err, tol=K2_TOL, ms=t_k, run_ms=t_run,
+                    device_ms=t_dev, plain_ms=t_p, bound_ms=bd, bound_by=by,
+                    bound_f32_ms=bd_f32, bound_f32_by=by_f32, bytes=io,
+                    flops=flops, macs_per_sample=macs)
+        emit("k2_l0", **case)
+        cases.append(case)
+    return cases
+
+
 class StageTimer:
     """CUDA events at the model's stage boundaries (``stage_hook``)."""
 
@@ -582,11 +702,22 @@ def recorded_kernel_calls(torch, calls: list):
 
     def make(kernel, wrapper):
         def call(*args, **kwargs):
-            calls.append((kernel, snap(args), snap(kwargs)))
+            calls.append((render_kernel(args) if kernel == "render"
+                          else kernel, snap(args), snap(kwargs)))
             return wrapper(*args, **kwargs)
         return call
 
     return swapped_kernels(make)
+
+
+def render_kernel(args) -> str:
+    """Which render kernel the wrapper launches for these arguments:
+    ``render`` (csrc/render.cu) or ``render_l0`` (csrc/render_l0.cu), by
+    the head's shape (Cf, Cv, n)."""
+    from enerf_tpu_torch.ops.kernels import render as krender
+
+    xyz, img, vol = args[0], args[3], args[4]
+    return krender.KERNELS[(img.shape[-1], vol.shape[-1], xyz.shape[2])][0]
 
 
 def hold_path_kernels(torch, path, model, batch, per_frame):
@@ -611,6 +742,8 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
                         "cost_volume_kernel"),
         "render": (krender.render_rays, krender.render_rays_plain,
                    "render_kernel"),
+        "render_l0": (krender.render_rays, krender.render_rays_plain,
+                      "render_l0_kernel"),
         "depth_regression": (kdr.depth_regression, kdr.depth_regression_plain,
                              "depth_regression_kernel")}
     cases = []
@@ -647,9 +780,14 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
                                   **K2_TOL) for k in ("rgb", "depth",
                                                       "weights"))
                 io, flops, _ = k2_work(args, out)
+                # both render kernels: the head's products in three TF32
+                # passes on the tensor cores (render.cu's route)
                 bd, by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
                 case.update(rays=args[0].shape[1], samples=args[0].shape[2],
-                            slots=args[3].shape[1], tol=K2_TOL)
+                            slots=args[3].shape[1],
+                            views_valid=(None if args[8] is None
+                                         else float(args[8].sum())),
+                            tol=K2_TOL)
             case.update(max_abs_err=err,
                         device_ms=device_kernel_ms(torch, call, symbol),
                         plain_ms=time_ms(torch, plain_call, reps=5,
@@ -675,7 +813,8 @@ def reset_launches():
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
-    kcv.launches = krender.launches = kdr.launches = 0
+    kcv.launches = kdr.launches = 0
+    krender.reset_launches()
 
 
 def read_launches() -> dict:
@@ -683,7 +822,7 @@ def read_launches() -> dict:
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
-    return {"cost_volume": kcv.launches, "render": krender.launches,
+    return {"cost_volume": kcv.launches, **krender.launches,
             "depth_regression": kdr.launches}
 
 
@@ -805,9 +944,8 @@ def phase_frames(torch, cfg):
               "weights_level1": [1, H * W, 2],
               "depth_mvs_level1": [1, H // 2, W // 2],
               "std_level1": [1, H // 2, W // 2]}
-    fields, launches, _ = drive_frames(
-        torch, "frames", model, batch,
-        {"cost_volume": 2, "render": 1, "depth_regression": 2}, shapes)
+    fields, launches, _ = drive_frames(torch, "frames", model, batch,
+                                       FRAMES_PER_FRAME, shapes)
     err_cpu = card_vs_cpu(torch, "64x96 frame", model,
                           make_synthetic_batch(cfg, H=64, W=96))
     emit("frames", **fields, card_vs_cpu_64x96_max_abs_err=err_cpu)
@@ -932,6 +1070,128 @@ def phase_composite(torch):
     return launches, cases
 
 
+@contextlib.contextmanager
+def timed_val_frames(timer, frame_ms, stages):
+    """``Trainer.val``'s render with the stage hook of ``timer``: each
+    frame's time (CUDA events from before the batch's upload to the last
+    stage) and stage times appended to ``frame_ms`` and ``stages``."""
+    import enerf_tpu_torch as et
+    import enerf_tpu_torch.train.trainer as trainer_mod
+
+    def render(model, batch):
+        timer.start()
+        out = et.render(model, batch, stage_hook=timer)
+        frame_ms.append(timer.total_ms())
+        stages.append(timer.stages_ms())
+        return out
+
+    saved = trainer_mod.render
+    trainer_mod.render = render
+    try:
+        yield
+    finally:
+        trainer_mod.render = saved
+
+
+def phase_val(torch):
+    """The val main path: ``Trainer.val`` of the port's default cascade
+    (``Config()``, dtu_pretrain's: planes (64, 8), num_samples (8, 2),
+    render_if (True, True), grid rays; its val batches carry 4 view slots,
+    3 real, as ``train_input_views`` (2, 3, 4) pads them) over
+    ``VAL_BATCHES`` 512x640 synthetic frames, scored by the evaluator
+    ``make_evaluator(cfg)`` gives (PSNR, SSIM, LPIPS on seeded random
+    weights), with the launch counts reset just before and read just after;
+    then the kernel path vs the plain path, the card vs the CPU at 128x160,
+    a profile of two frames and every kernel call of a frame on its own."""
+    import dataclasses
+    import tempfile
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import Config
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+    from enerf_tpu_torch.eval.lpips import write_seeded_weights
+    from enerf_tpu_torch.factory import make_evaluator
+    from enerf_tpu_torch.train import Trainer, create_train_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(workspace=tmp)
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, grid_rays=True))
+        model = et.build_model(cfg, seed=0)
+        randomize_bn_stats(torch, model, seed=3)
+        batches = []
+        for i in range(VAL_BATCHES):
+            b = make_synthetic_batch(cfg, H=H, W=W, seed=i)
+            b.pop("tar_img")
+            batches.append(b)
+        lpips_path = str(Path(tmp) / "lpips_vgg.npz")
+        write_seeded_weights(lpips_path, seed=9)
+        evaluator = make_evaluator(cfg, lpips_path=lpips_path)
+        trainer = Trainer(cfg, train_step=None)
+        state = create_train_state(cfg, model)
+
+        timer, frame_ms, stages = StageTimer(torch), [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with timed_val_frames(timer, frame_ms, stages):
+            result = trainer.val(0, state, batches, evaluator=evaluator)
+        val_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = {k: v * VAL_BATCHES for k, v in VAL_PER_FRAME.items()}
+    if launches != expect:
+        fail(f"val: kernel launches on the main path {launches}, expected "
+             f"{expect}")
+    if not ({"psnr", "ssim", "lpips"} <= set(result) and all(
+            v == v and abs(v) != float("inf") for v in result.values())):
+        fail(f"val: metrics {result}")
+    model.eval()                     # Trainer.val leaves it in training mode
+
+    batch = et.to_device(batches[0], "cuda")
+    out = et.render(model, batch)
+    n0, n1 = (H // 4) * (W // 4), H * W
+    shapes = {"rgb_level0": [1, n0, 3], "depth_level0": [1, n0],
+              "weights_level0": [1, n0, 8],
+              "depth_mvs_level0": [1, H // 8, W // 8],
+              "std_level0": [1, H // 8, W // 8],
+              "rgb_level1": [1, n1, 3], "depth_level1": [1, n1],
+              "weights_level1": [1, n1, 2],
+              "depth_mvs_level1": [1, H // 2, W // 2],
+              "std_level1": [1, H // 2, W // 2]}
+    got = {k: list(v.shape) for k, v in out.items()}
+    if got != shapes:
+        fail(f"val: output shapes {got}, expected {shapes}")
+    with plain_path():
+        ref = et.render(model, batch)
+    err = {k: max_err(torch, out[k], ref[k], E2E_RTOL, E2E_ATOL[k],
+                      f"val {k} kernel vs plain path") for k in out}
+    small = make_synthetic_batch(cfg, H=128, W=160)
+    small.pop("tar_img")
+    err_cpu = card_vs_cpu(torch, "val 128x160", model, small)
+    timed = stages[1:]               # the first frame excluded
+    timed_ms = frame_ms[1:]
+    emit("val", H=H, W=W, batches=VAL_BATCHES,
+         view_slots=int(batch["view_mask"].numel()),
+         views_valid=float(batch["view_mask"].sum()),
+         launches=launches,
+         launches_per_frame={k: v / VAL_BATCHES for k, v in launches.items()},
+         frame_ms=frame_ms, median_frame_ms=statistics.median(timed_ms),
+         frame_ms_spread={"min": min(timed_ms), "max": max(timed_ms),
+                          "stdev": statistics.stdev(timed_ms)},
+         median_stage_ms={k: statistics.median(st[k] for st in timed)
+                          for k in timed[0]},
+         val_seconds=val_s, metrics=result, peak_mem_gb=peak_gb,
+         kernel_vs_plain_max_abs_err=err,
+         e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL},
+         card_vs_cpu_128x160_max_abs_err=err_cpu)
+    profile_device(torch, "val_profile", lambda: et.render(model, batch), 2,
+                   "frame")
+    cases = hold_path_kernels(torch, "val", model, batch, VAL_PER_FRAME)
+    return launches, cases
+
+
 def phase_profile(torch, model, batch, frames: int = 2) -> None:
     """Device kernel time by name and the device's idle share over
     ``frames`` frames."""
@@ -943,18 +1203,28 @@ def phase_profile(torch, model, batch, frames: int = 2) -> None:
 
 def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
     """Device kernel time by name and the device's idle share over ``n``
-    calls of ``run_once``, from torch.profiler's CUDA trace."""
+    calls of ``run_once``, from torch.profiler's CUDA trace (a session
+    with no device record at all is run again, as in ``device_kernel_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run_once()
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        fail("the profiler recorded no device activity")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run_once()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+        print(f"chip_smoke: {phase}: the profiler recorded no device "
+              "activity; profiling again", file=sys.stderr)
+    else:
+        fail(f"{phase}: the profiler recorded no device activity 6 times")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -974,17 +1244,21 @@ def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
 
 
 def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
-                     warmup: int = 5, tries: int = 3) -> float:
+                     warmup: int = 5, tries: int = 6) -> float:
     """Mean device time of the kernel named ``kernel_name`` over the last
     ``n`` of ``warmup + n`` calls of ``fn``, from torch.profiler's CUDA
     trace: the kernel alone, without the host time of its wrapper that CUDA
     events around a call include. The trace now and then lacks launches
-    (CUPTI drops records): a session with fewer than ``n`` is run again, at
-    most ``tries`` times."""
+    (CUPTI drops records, up to three sessions in a row have been seen): a
+    session with fewer than ``n`` is run again after a short pause, at most
+    ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.5)
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(warmup + n):
                 fn()
@@ -1201,7 +1475,8 @@ def phase_train(torch):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # training runs the plain, differentiable cost volume and render stage
     # and the depth-regression kernel (plain-recompute backward)
-    expect = {"cost_volume": 0, "render": 0, "depth_regression": 2 * n}
+    expect = {"cost_volume": 0, "render": 0, "render_l0": 0,
+              "depth_regression": 2 * n}
     if launches != expect:
         fail(f"kernel launches on the train path {launches}, expected {expect}")
     for i, st in enumerate(losses):
@@ -1289,13 +1564,16 @@ def main() -> None:
     k1 = phase_k1(torch, cfg)
     k1_crop = phase_k1_crop(torch)
     k2 = phase_k2(torch, cfg)
+    k2_l0 = phase_k2_l0(torch, cfg)
     paths = {}
     paths["frames"], model, batch = phase_frames(torch, cfg)
     phase_profile(torch, model, batch)
     del model, batch
     paths["human"], human_calls = phase_human(torch)
     paths["composite"], composite_calls = phase_composite(torch)
-    path_calls = {"human": human_calls, "composite": composite_calls}
+    paths["val"], val_calls = phase_val(torch)
+    path_calls = {"human": human_calls, "composite": composite_calls,
+                  "val": val_calls}
     k4 = phase_k4(torch, cfg)
     floor = phase_k4_floor(torch)
     paths["train"], state, step, train_batch = phase_train(torch)
@@ -1309,7 +1587,8 @@ def main() -> None:
     def on_paths(kernel):
         """A frame's calls of ``kernel`` on each variant's path, each held
         on its own (``hold_path_kernels``): summed times and bound."""
-        tc = kernel == "render"       # K2's products on the tensor cores
+        # K2's products (both head shapes) bounded on the tensor cores
+        tc = kernel in ("render", "render_l0")
         by_path = {}
         for path, cases in path_calls.items():
             cs = [c for c in cases if c["kernel"] == kernel]
@@ -1333,6 +1612,7 @@ def main() -> None:
 
     per_frame = [c for c in k1 if c["case"] in ("level0", "level1")]
     full = k2[0]   # the frame's shape: 327,680 rays, S = 3
+    full_l0 = k2_l0[0]   # level 0 of a 512x640 frame: 20,480 rays, S = 3
     k1_bound, k1_by = bound_ms(sum(c["bytes"] for c in per_frame),
                                sum(c["flops"] for c in per_frame))
     per_step = [c for c in k4 if c["case"].startswith("train_")]
@@ -1370,7 +1650,22 @@ def main() -> None:
          "plain_ms": full["plain_ms"]["median"],
          "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
          "bound_f32_ms": full["bound_f32_ms"],
-         "per_frame_by_path": on_paths("render"), "library_ms": None},
+         "per_frame_by_path": on_paths("render"), "library_ms": None,
+         "library_ms_reason": LIBRARY_NONE_RENDER},
+        {"name": "render_l0", "route": "cuda",
+         "source": "enerf_tpu_torch/csrc/render_l0.cu",
+         "replaces": "enerf_tpu/ops/pallas/render.py:426",
+         **launches("render_l0"),
+         "max_abs_err": max(max(c["max_abs_err"] for c in k2_l0),
+                            path_err("render_l0")),
+         # a 512x640 frame's level 0: 20,480 rays, S = 3
+         "ms": full_l0["ms"]["median"], "run_ms": full_l0["run_ms"],
+         "device_ms": full_l0["device_ms"],
+         "plain_ms": full_l0["plain_ms"]["median"],
+         "bound_ms": full_l0["bound_ms"], "bound_by": full_l0["bound_by"],
+         "bound_f32_ms": full_l0["bound_f32_ms"],
+         "per_frame_by_path": on_paths("render_l0"), "library_ms": None,
+         "library_ms_reason": LIBRARY_NONE_RENDER},
         {"name": "depth_regression", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/depth_regression.cu",
          "replaces": "enerf_tpu/ops/pallas/reductions.py:66",

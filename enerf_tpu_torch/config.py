@@ -143,6 +143,8 @@ class Config:
     # the network class, named by the JAX package's module path as the YAML
     # files carry it; ``factory.make_network`` maps it to the port's class
     network_module: str = "enerf_tpu.models.enerf"
+    # the evaluator, named the same way; ``factory.make_evaluator`` maps it
+    evaluator_module: str = "enerf_tpu.eval.evaluator"
 
     enerf: ENeRFConfig = field(default_factory=ENeRFConfig)
     train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
@@ -323,18 +325,23 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
         enerf_tree = dict(tree.get("enerf", {}))
         enerf_tree["num_fg_layers"] = tree.pop("num_fg_layers")
         tree["enerf"] = enerf_tree
-    # the reference's module paths name the networks as the JAX package's
-    # make_cfg maps them (enerf_tpu/config.py:446-449, :462-464)
-    net = tree.get("network_module")
-    if isinstance(net, str) and net in _REFERENCE_NETWORKS:
-        tree["network_module"] = _REFERENCE_NETWORKS[net]
+    # the reference's module paths name the networks and evaluators as the
+    # JAX package's make_cfg maps them (enerf_tpu/config.py:446-449,
+    # :462-468)
+    for key in ("network_module", "evaluator_module"):
+        name = tree.get(key)
+        if isinstance(name, str) and name in _REFERENCE_MODULES:
+            tree[key] = _REFERENCE_MODULES[name]
     return _build_dataclass(Config, tree)
 
 
-_REFERENCE_NETWORKS = {
+_REFERENCE_MODULES = {
     "lib.networks.enerf.network": "enerf_tpu.models.enerf",
     "lib.networks.enerf.network_human": "enerf_tpu.models.enerf_human",
     "lib.networks.enerf.network_composite": "enerf_tpu.models.enerf_composite",
+    "lib.evaluators.enerf": "enerf_tpu.eval.evaluator",
+    "lib.evaluators.enerf_human": "enerf_tpu.eval.evaluator_human",
+    "lib.evaluators.enerf_composite": "enerf_tpu.eval.evaluator_composite",
 }
 
 
@@ -362,6 +369,7 @@ def human_eval_config() -> Config:
     static ``HUMAN_WINDOW_HW`` window of the mask ``human_mask``."""
     return Config(
         network_module="enerf_tpu.models.enerf_human",
+        evaluator_module="enerf_tpu.eval.evaluator_human",
         enerf=ENeRFConfig(
             test_input_views=2, train_input_views=(2,), grid_rays=True,
             mask_window_hw=HUMAN_WINDOW_HW,
@@ -388,6 +396,7 @@ def composite_eval_config() -> Config:
     aggregation."""
     return Config(
         network_module="enerf_tpu.models.enerf_composite",
+        evaluator_module="enerf_tpu.eval.evaluator_composite",
         enerf=ENeRFConfig(
             test_input_views=3, train_input_views=(2, 3), viewdir_agg=False,
             num_fg_layers=1, fg_bbox_hw=(256, 192), bg_volume_planes=(16, 4),

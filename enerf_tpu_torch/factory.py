@@ -1,13 +1,17 @@
-"""The network named by the config; counterpart of ``make_network`` in
-``enerf_tpu/factory.py``.
+"""The network and the evaluator named by the config; counterpart of
+``make_network`` and ``make_evaluator`` in ``enerf_tpu/factory.py``.
 
-The JAX package imports the module that ``cfg.network_module`` names and
-builds its ``Network``. The port never imports that module: it maps the
-module's last component to its own class by a table of names.
+The JAX package imports the module that ``cfg.network_module`` (or
+``cfg.evaluator_module``) names and builds its ``Network`` (or
+``Evaluator``). The port never imports that module: it maps the module's
+last component to its own class by a table of names. The evaluators are
+imported only when one is asked for, so building a network does not load
+the evaluation layer (LPIPS, scipy).
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Optional
 
 import torch
@@ -25,15 +29,39 @@ NETWORKS = {
 }
 
 
+# the port's evaluator modules, each holding an ``Evaluator``
+EVALUATORS = {
+    "evaluator": "enerf_tpu_torch.eval.evaluator",
+    "evaluator_human": "enerf_tpu_torch.eval.evaluator_human",
+    "evaluator_composite": "enerf_tpu_torch.eval.evaluator_composite",
+}
+
+
+def _lookup(key: str, module: str, table: dict):
+    name = module.rsplit(".", 1)[-1]
+    if name not in table:
+        raise ValueError(f"{key} {module!r} has no counterpart in "
+                         f"enerf_tpu_torch (known: {sorted(table)})")
+    return table[name]
+
+
 def network_class(cfg: Config) -> type:
     """The port's class for ``cfg.network_module``; raises ``ValueError``
     for a module it has no counterpart of."""
-    name = cfg.network_module.rsplit(".", 1)[-1]
-    if name not in NETWORKS:
-        raise ValueError(
-            f"network_module {cfg.network_module!r} has no counterpart in "
-            f"enerf_tpu_torch (known: {sorted(NETWORKS)})")
-    return NETWORKS[name]
+    return _lookup("network_module", cfg.network_module, NETWORKS)
+
+
+def evaluator_class(cfg: Config) -> type:
+    """The port's class for ``cfg.evaluator_module``; raises
+    ``ValueError`` for a module it has no counterpart of."""
+    module = _lookup("evaluator_module", cfg.evaluator_module, EVALUATORS)
+    return importlib.import_module(module).Evaluator
+
+
+def make_evaluator(cfg: Config, **kwargs):
+    """The evaluator ``cfg.evaluator_module`` names; ``kwargs`` go to its
+    constructor (``device`` for LPIPS, default the GPU; ``lpips_path``)."""
+    return evaluator_class(cfg)(cfg, **kwargs)
 
 
 def make_network(cfg: Config,

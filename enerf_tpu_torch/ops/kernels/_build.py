@@ -25,7 +25,7 @@ from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("cost_volume", "render", "depth_regression")
+KERNELS = ("cost_volume", "render", "render_l0", "depth_regression")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -1,6 +1,8 @@
-"""Fused render stage of one cascade level: the CUDA kernel
-``csrc/render.cu`` (the head's products on the tensor cores in three TF32
-passes, f32-accurate), its wrapper, and its plain PyTorch version.
+"""Fused render stage of one cascade level: the CUDA kernels
+``csrc/render.cu`` (level 1's head shape; the head's products on the
+tensor cores in three TF32 passes, f32-accurate) and ``csrc/render_l0.cu``
+(level 0's head shape; f32 on the CUDA cores), their wrapper, and their
+plain PyTorch version.
 
 Replaces ``enerf_tpu/ops/pallas/render.py:fused_render_rays`` (kernels
 ``_render_kernel`` → ``_render_math`` and ``_render_kernel_v5``). Per ray,
@@ -13,8 +15,8 @@ masked softmax blend of the source rgb, and alpha compositing
 (α = 1 − exp(−σ), no dists; depth = softmax(weights)·z).
 
 On a CPU tensor ``render_rays`` runs the plain version; on a CUDA tensor
-it launches the kernel or raises. It refuses inputs that need a gradient;
-the training path calls ``render_rays_plain``.
+it launches the kernel built for the head's shape, or raises. It refuses
+inputs that need a gradient; the training path calls ``render_rays_plain``.
 """
 
 from __future__ import annotations
@@ -28,28 +30,37 @@ from enerf_tpu_torch.ops.composite import raw2outputs
 from enerf_tpu_torch.ops.ibr import get_img_feat, get_vox_feat, get_vox_feat_grid
 from enerf_tpu_torch.ops.kernels import _build
 
-# Launches of the CUDA kernel since the last reset (set to 0 to reset).
-launches = 0
-
-# The shapes the kernel is compiled for: 8 image-feature channels + rgb,
-# an 8-channel feature volume, 2 samples per ray, 2..4 source views, and
-# the NeRFHead widths (hidden 64, global 32, aggregated 16).
-KERNEL_CF = 11
-KERNEL_CV = 8
-KERNEL_NS = 2
+# The head shapes the kernels are compiled for, (image channels Cf,
+# volume channels Cv, samples a ray n) → (kernel library, C function):
+# level 1 of the cascade (8 FPN channels + rgb, 2 samples) and level 0 (32
+# + rgb, 8 samples), each over an 8-channel feature volume and 2..4 source
+# views, with the NeRFHead widths (hidden 64, global 32, aggregated 16).
+KERNELS = {(11, 8, 2): ("render", "enerf_render_rays"),
+           (35, 8, 8): ("render_l0", "enerf_render_rays_l0")}
 KERNEL_S = (2, 3, 4)
 
-# enerf_render_rays(13 pointers, B, N, S, H, W, Dv, Hv, Wv, n_params,
+# Launches since the last reset, by kernel library (``KERNELS``): "render"
+# for csrc/render.cu, "render_l0" for csrc/render_l0.cu. Reset with
+# ``reset_launches()``.
+launches = {lib: 0 for lib, _ in KERNELS.values()}
+
+
+def reset_launches() -> None:
+    for lib in launches:
+        launches[lib] = 0
+
+
+# enerf_render_rays[_l0](13 pointers, B, N, S, H, W, Dv, Hv, Wv, n_params,
 # white_bkgd, render_scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
              + [ctypes.c_float, ctypes.c_void_p])
 
 
 def head_params(head) -> torch.Tensor:
-    """The NeRFHead's weights as the kernel's flat f32 buffer: each Linear's
-    (out, in) weight then its bias, in the order view_fc, global_fc,
-    agg_w_fc, fc, lr0, sigma, color.0, color.2 (``csrc/render.cu``
-    ``HeadLayout``)."""
+    """The NeRFHead's weights as the kernels' flat f32 buffer: each
+    Linear's (out, in) weight then its bias, in the order view_fc,
+    global_fc, agg_w_fc, fc, lr0, sigma, color.0, color.2 (``HeadLayout``
+    of ``csrc/render.cu`` and ``csrc/render_l0.cu``)."""
     agg = head.agg
     layers = [agg.view_fc[0], agg.global_fc[0], agg.agg_w_fc[0], agg.fc[0],
               head.lr0[0], head.sigma[0], head.color[0], head.color[2]]
@@ -102,9 +113,12 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
     either way, which is the same function). Returns {'rgb' (B, N, 3),
     'depth' (B, N), 'weights' (B, N, n)}.
 
-    The kernel has no backward: with gradients enabled, an input or a head
-    parameter that requires one raises ``ValueError`` on every device
-    (training calls ``render_rays_plain``)."""
+    On a CUDA tensor the head's shape (Cf, Cv, n) picks the kernel
+    (``KERNELS``: ``csrc/render.cu`` for level 1's (11, 8, 2),
+    ``csrc/render_l0.cu`` for level 0's (35, 8, 8)); any other shape
+    raises ``ValueError``. The kernels have no backward: with gradients
+    enabled, an input or a head parameter that requires one raises
+    ``ValueError`` on every device (training calls ``render_rays_plain``)."""
     _build.refuse_grad("render", "render_rays_plain", world_xyz, uvd, z_vals,
                        img_feat_rgb, feat_volume, src_exts, src_ixts, tar_ext,
                        view_mask,
@@ -122,17 +136,16 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
 
 def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
             src_ixts, tar_ext, view_mask, head, render_scale, white_bkgd):
-    global launches
     req = _build.require
     B, N, n, _ = world_xyz.shape
     _, S, H, W, Cf = img_feat_rgb.shape
     _, Dv, Hv, Wv, Cv = feat_volume.shape
     dev = world_xyz.device
+    kernel = KERNELS.get((Cf, Cv, n))
+    req(kernel is not None and S in KERNEL_S,
+        "the render kernels are built for (Cf, Cv, n) in {} and S in {}; got "
+        "Cf={}, Cv={}, n={}, S={}", sorted(KERNELS), KERNEL_S, Cf, Cv, n, S)
     req(dev.type == "cuda", "render kernel needs a CUDA tensor, got {}", dev)
-    req((Cf, Cv, n) == (KERNEL_CF, KERNEL_CV, KERNEL_NS) and S in KERNEL_S,
-        "render kernel is built for Cf={}, Cv={}, n={}, S in {}; got Cf={}, "
-        "Cv={}, n={}, S={}", KERNEL_CF, KERNEL_CV, KERNEL_NS, KERNEL_S, Cf,
-        Cv, n, S)
     req(head.viewdir_agg and head.use_vox_feat,
         "render kernel needs a NeRFHead with viewdir_agg and use_vox_feat")
     if view_mask is None:
@@ -160,7 +173,7 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
     rgb = torch.empty(B, N, 3, dtype=torch.float32, device=dev)
     depth = torch.empty(B, N, dtype=torch.float32, device=dev)
     weights = torch.empty(B, N, n, dtype=torch.float32, device=dev)
-    fn = _build.load_function("render", "enerf_render_rays", _ARGTYPES)
+    fn = _build.load_function(*kernel, _ARGTYPES)
     rc = fn(world_xyz.data_ptr(), uvd.data_ptr(), z_vals.data_ptr(),
             img_feat_rgb.data_ptr(), feat_volume.data_ptr(),
             src_exts.data_ptr(), src_ixts.data_ptr(), tar_ext.data_ptr(),
@@ -168,6 +181,6 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
             depth.data_ptr(), weights.data_ptr(), B, N, S, H, W, Dv, Hv, Wv,
             int(params.numel()), int(white_bkgd), float(render_scale),
             _build.stream_handle(dev))
-    _build.check_rc("render", rc)
-    launches += 1
+    _build.check_rc(kernel[0], rc)
+    launches[kernel[0]] += 1
     return {"rgb": rgb, "depth": depth, "weights": weights}

@@ -19,7 +19,13 @@ differ from JAX's by more than rounding, for a cause not yet found: at
 this size the worst, ``cost_reg_0_bg.conv11.1.bias``, is at cosine 0.9967
 with JAX's, while the port's f32 and f64 gradients agree to 2e-5 and
 JAX's at two XLA optimization levels to 1.4e-4 (other bg planes, sample
-counts and JAX's unpacked head give 0.994–0.999); the forward agrees."""
+counts and JAX's unpacked head give 0.994–0.999); the forward agrees.
+
+``test_composite_head_gradients_on_jax_inputs`` holds each head apart from
+that: JAX's recorded head inputs and output cotangent replayed through the
+port's head give JAX's head gradients at cosine ≥ 0.999 and relative L2
+≤ 1e-4, so the head and its backward agree and the end-to-end gap comes in
+with the heads' inputs."""
 
 import copy
 
@@ -92,6 +98,7 @@ def train_pair():
             k: torch.from_numpy(v.astype(np.float64) if v.dtype == np.float32
                                 else v) for k, v in batch.items()})
     return dict(jloss=float(jloss), jout=jout, jgrads=jgrads, model=model,
+                jcfg=jcfg, jb=jb, variables=variables, targets=targets,
                 loss=float(loss.detach()),
                 out={k: v.detach().numpy() for k, v in out.items()},
                 out64={k: v.numpy() for k, v in out64.items()})
@@ -133,3 +140,93 @@ def test_composite_train_gradients_match_jax(train_pair):
     print(f"worst gradient cosine {worst[False]}, background {worst[True]}")
     assert worst[False][0] >= 0.999, worst[False]
     assert worst[True][0] >= BG_COSINE, worst[True]
+
+
+# every head of the model: the fg layer's and the background's, per level
+HEADS = ("nerf_0_layer0", "nerf_1_layer0", "nerf_0_bg", "nerf_1_bg")
+
+
+@pytest.fixture(scope="module")
+def head_replay(train_pair):
+    """JAX's own inputs, output cotangent and parameter gradients of each
+    NeRF head in the fixture's training-mode forward and loss, recorded
+    without touching the JAX package: ``flax.linen.intercept_methods``
+    catches each ``NeRFHead.__call__``, keeps its arguments and adds a zero
+    probe to its output, whose gradient is the output's cotangent. A head's
+    parameters serve that one call only, so their gradient in the same
+    program is the vjp of that head alone at those inputs and that
+    cotangent. JAX runs its per-view jnp head here (``train_packed_render``
+    off), the head whose arguments the port's head takes; the gradient is
+    taken with respect to the probes and the heads' parameters only."""
+    import dataclasses
+
+    from flax import linen as nn
+
+    from enerf_tpu.models.nerf_head import NeRFHead as JNeRFHead
+
+    jcfg, jb = train_pair["jcfg"], train_pair["jb"]
+    variables, targets = train_pair["variables"], train_pair["targets"]
+    jmodel = JComposite(cfg=dataclasses.replace(
+        jcfg.enerf, train_packed_render=False), train_mode=True)
+
+    def run(head_params, probes=None):
+        recorded = {}
+
+        def intercept(next_fun, args, kwargs, context):
+            out = next_fun(*args, **kwargs)
+            if (isinstance(context.module, JNeRFHead)
+                    and context.method_name == "__call__"):
+                name = context.module.name
+                recorded[name] = (args, out)
+                if probes is not None:
+                    out = out + probes[name]
+            return out
+
+        params = {**variables["params"], **head_params}
+        with nn.intercept_methods(intercept):
+            out, _ = jmodel.apply(
+                {"params": params, "batch_stats": variables["batch_stats"]},
+                jb, mutable=["batch_stats"])
+        loss = sum(jnp.mean((out[k] - targets[k]) ** 2) for k in targets)
+        return loss, recorded
+
+    heads = {k: variables["params"][k] for k in HEADS}
+    shapes = jax.eval_shape(lambda p: run(p)[1], heads)
+    assert set(shapes) == set(HEADS)
+    probes = {k: jnp.zeros(v[1].shape, v[1].dtype) for k, v in shapes.items()}
+    grad = jax.jit(jax.grad(lambda p, q: run(p, q), argnums=(0, 1),
+                            has_aux=True)).lower(heads, probes).compile(
+        compiler_options=FAST_COMPILE)
+    (jgrads, cotangents), recorded = grad(heads, probes)
+    return {k: ([np.array(a) for a in recorded[k][0]],
+                np.array(cotangents[k]), jgrads[k]) for k in HEADS}
+
+
+@pytest.mark.parametrize("head", HEADS)
+def test_composite_head_gradients_on_jax_inputs(train_pair, head_replay, head):
+    """Each head's backward, held apart from the forward's conditioning:
+    JAX's recorded inputs and output cotangent (``head_replay``) replayed
+    through the port's head, whose parameter gradients must match JAX's
+    head's at cosine ≥ 0.999 and relative L2 error ≤ 1e-4 each (f32 on
+    both sides; the head's products and softmaxes reassociate)."""
+    args, ct, jgrads = head_replay[head]
+    model = train_pair["model"]
+    port_head = copy.deepcopy(model.get_submodule(head))
+    for p in port_head.parameters():
+        p.grad = None
+    out = port_head(*[torch.from_numpy(a) for a in args])
+    assert tuple(out.shape) == ct.shape
+    out.backward(torch.from_numpy(ct))
+    ref = flax_leaves_by_param(model, {head: jgrads})
+    grads = {f"{head}.{k}": p.grad for k, p in port_head.named_parameters()}
+    assert set(ref) == set(grads)
+    worst = (2.0, 0.0, None)
+    for k, g_ref in ref.items():
+        g = grads[k].numpy().ravel().astype(np.float64)
+        g_ref = g_ref.ravel().astype(np.float64)
+        rel = np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref)
+        cos = float(np.dot(g, g_ref) / (np.linalg.norm(g)
+                                        * np.linalg.norm(g_ref)))
+        worst = min(worst, (cos, -rel, k))
+        assert cos >= 0.999 and rel <= 1e-4, (k, cos, rel)
+    print(f"{head}: worst gradient (cosine, -relative L2, parameter) {worst}")

@@ -1,7 +1,8 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card.
 
 Each test skips without a CUDA device (a hand-written kernel has no CPU
-mode). This file imports neither JAX nor the JAX package, so on a machine
+mode). The render stage is held at both of its kernels' head shapes:
+level 1's (``csrc/render.cu``) and level 0's (``csrc/render_l0.cu``). This file imports neither JAX nor the JAX package, so on a machine
 with a GPU and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -40,13 +41,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _batch(n_src, device, slots=3):
-    """A synthetic eval batch with ``slots`` source-view slots, the first
-    ``n_src`` of them real."""
+def _batch(n_src, device, slots=3, hw=(H, W)):
+    """A synthetic eval batch of an ``hw`` frame with ``slots`` source-view
+    slots, the first ``n_src`` of them real."""
     cfg = dtu_eval_config()
     cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
         cfg.enerf, test_input_views=slots, train_input_views=(slots,)))
-    b = make_synthetic_batch(cfg, H=H, W=W, n_src=n_src)
+    b = make_synthetic_batch(cfg, H=hw[0], W=hw[1], n_src=n_src)
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
@@ -170,10 +171,11 @@ def test_variant_frame_kernel_vs_plain_path(cuda, monkeypatch, variant):
         batch = make_composite_batch(cfg, H=Hs, W=Ws)
         per_frame = (4, 0, 4)
     model = et.build_model(cfg, seed=3)
-    before = (kcv.launches, krender.launches, kdr.launches)
+    counts = lambda: (kcv.launches, krender.launches["render"],  # noqa: E731
+                      kdr.launches)
+    before = counts()
     out = et.render(model, batch)
-    assert tuple(a - b for a, b in zip(
-        (kcv.launches, krender.launches, kdr.launches), before)) == per_frame
+    assert tuple(a - b for a, b in zip(counts(), before)) == per_frame
     _plain_path(monkeypatch)
     ref = et.render(model, batch)
     assert set(out) == set(ref)
@@ -209,11 +211,15 @@ def _render_case(cuda, n_src, slots=3, seed=None, cut=0):
     return args, dict(render_scale=1.0, grid_hw=None if cut else (H, W))
 
 
-def _check_render(args, kw):
+def _check_render(args, kw, kernel="render"):
+    """The render kernel vs its plain version (chip_smoke.py's K2_TOL); the
+    wrapper counts the one launch under ``kernel`` (``render`` for
+    csrc/render.cu, ``render_l0`` for csrc/render_l0.cu), the other none."""
     with torch.no_grad():
-        before = krender.launches
+        before = dict(krender.launches)
         out = krender.render_rays(*args, **kw)
-        assert krender.launches == before + 1
+        assert krender.launches == {k: v + (k == kernel)
+                                    for k, v in before.items()}
         plain = krender.render_rays_plain(*args, **kw)
     for k in ("rgb", "depth", "weights"):
         torch.testing.assert_close(out[k], plain[k], rtol=1e-4, atol=2e-4)
@@ -240,6 +246,121 @@ def test_render_kernel_views_ragged_white(cuda, slots, n_src, cut, white):
     assert args[3].shape[1] == slots and float(args[8].sum()) == n_src
     assert args[0].shape[1] == H * W - cut
     _check_render(args, dict(kw, white_bkgd=white))
+
+
+def _render_l0_case(cuda, n_src, slots=3, seed=0, cut=0, cf=35):
+    """Level 0's render stage (the head shape of csrc/render_l0.cu: 32 FPN
+    channels + rgb, 8 samples in disparity, a 64-plane volume, the image
+    features at render scale 1/4) on the grid rays of a (4H, 4W) synthetic
+    frame, whose level-0 render frame is (H, W); the last ``cut`` rays
+    dropped (then no longer a grid). ``cf``: another channel count, for the
+    shape no kernel takes."""
+    g = torch.Generator().manual_seed(100 + seed)
+    b = _batch(n_src, cuda, slots, hw=(4 * H, 4 * W))
+    head = NeRFHead(cf)
+    init_weights(head, g, kaiming_linear=True)
+    head = head.eval().to(cuda)
+    Hv, Wv = H // 2, W // 2
+    depth = (1 / (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g))).to(cuda)
+    std = (0.005 + 0.02 * torch.rand(1, Hv, Wv, generator=g)).to(cuda)
+    nf = torch.stack([torch.full((1, Hv, Wv), 1 / 2.5),
+                      torch.full((1, Hv, Wv), 1 / 5.5)], 1).to(cuda)
+    rays = build_rays(b["rays_0"], depth, std, nf, True, 2.0, grid=True)
+    xyz, uvd, z = sample_along_depth(rays, 8, True)
+    uvd = uvd * torch.tensor([1 / (W - 1), 1 / (H - 1), 1.0], device=cuda)
+    img = torch.cat([torch.randn(1, slots, H, W, cf - 3, generator=g).to(cuda),
+                     unpreprocess(b["src_inps"], 0.25)], -1).contiguous()
+    vol = torch.randn(1, 64, Hv, Wv, 8, generator=g).to(cuda)
+    if cut:
+        n = xyz.shape[1] - cut
+        xyz, uvd, z = (t[:, :n].contiguous() for t in (xyz, uvd, z))
+    args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"], b["tar_ext"],
+            b["view_mask"], head)
+    return args, dict(render_scale=0.25, grid_hw=None if cut else (H, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,n_src,cut,white", [
+    (3, 3, 0, False),      # S = 3, the default cascade's level 0
+    (3, 2, 0, False),      # a padded view
+    (2, 2, 0, False),      # S = 2
+    (4, 4, 0, False),      # S = 4: the warp's 32 lanes, 8 samples x 4 views
+    (4, 3, 0, False),
+    (3, 3, 5, False),      # a ragged ray count, no longer a grid
+    (3, 3, 0, True),       # white background
+])
+def test_render_l0_kernel_matches_plain(cuda, slots, n_src, cut, white):
+    args, kw = _render_l0_case(cuda, n_src, slots, seed=10 * slots + n_src,
+                               cut=cut)
+    assert args[3].shape[1] == slots and float(args[8].sum()) == n_src
+    assert args[0].shape[1:3] == (H * W - cut, 8)
+    _check_render(args, dict(kw, white_bkgd=white), kernel="render_l0")
+
+
+@pytest.mark.cuda
+def test_render_l0_kernel_batch_of_two(cuda):
+    """Two frames in one call, the second with a padded view: each ray
+    reads its own frame's cameras, view mask, images and volume."""
+    a, kw = _render_l0_case(cuda, 3, seed=1)
+    b, _ = _render_l0_case(cuda, 2, seed=2)
+    args = tuple(torch.cat([x, y]).contiguous() for x, y in zip(a[:9], b[:9]))
+    assert args[8].tolist() == [[1, 1, 1], [1, 1, 0]]
+    _check_render(args + (a[9],), kw, kernel="render_l0")
+
+
+@pytest.mark.cuda
+def test_render_kernel_refuses_other_head_shapes(cuda):
+    """A head shape no kernel is built for (19 image channels, 8 samples)
+    raises on the card, and launches nothing: there is no plain fallback
+    there."""
+    args, kw = _render_l0_case(cuda, 3, cf=19)
+    before = dict(krender.launches)
+    with torch.no_grad(), pytest.raises(ValueError, match="built for"):
+        krender.render_rays(*args, **kw)
+    assert krender.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["dtu_pretrain", "human_train"])
+def test_both_levels_frame_kernel_vs_plain_path(cuda, monkeypatch, variant):
+    """Both levels rendered through the kernels at 128x160: the port's
+    default cascade (``Config()``, dtu_pretrain's: planes (64, 8), samples
+    (8, 2), grid rays) and ``ENeRFHuman`` at zjumocap_train.yaml's cascade
+    (render_if (True, True), planes (32, 8), 2 views, the mask window on
+    level 1); each level's render launches its kernel once, and the kernel
+    path matches the plain path (the tolerances of
+    ``test_variant_frame_kernel_vs_plain_path``)."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import Config, human_eval_config, human_mask
+
+    Hs, Ws = 128, 160
+    if variant == "dtu_pretrain":
+        cfg = Config()
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, grid_rays=True))
+        batch = make_synthetic_batch(cfg, H=Hs, W=Ws)
+    else:
+        cfg = human_eval_config()
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, mask_window_hw=(96, 96),
+            cas_config=dataclasses.replace(cfg.enerf.cas_config,
+                                           render_if=(True, True))))
+        batch = make_synthetic_batch(cfg, H=Hs, W=Ws)
+        batch["mask_at_box"] = human_mask(Hs, Ws)
+    batch.pop("tar_img")
+    model = et.build_model(cfg, seed=4)
+    counts = lambda: (kcv.launches, krender.launches["render"],  # noqa: E731
+                      krender.launches["render_l0"], kdr.launches)
+    before = counts()
+    out = et.render(model, batch)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 1, 1, 2)
+    assert {k.rsplit("_level", 1)[1] for k in out} == {"0", "1"}
+    _plain_path(monkeypatch)
+    ref = et.render(model, batch)
+    assert set(out) == set(ref)
+    for k in out:
+        atol = 3e-3 if k.startswith(("depth", "std")) else 3e-4
+        torch.testing.assert_close(out[k], ref[k], rtol=1e-3, atol=atol)
 
 
 @pytest.mark.cuda
@@ -330,7 +451,7 @@ def test_train_step_on_card(cuda):
     cpu_model = copy.deepcopy(model).cpu()
     p0 = [p.detach().clone() for p in model.parameters()]
     step = make_train_step(cfg, (H, W))
-    before = (kcv.launches, krender.launches, kdr.launches)
+    before = (kcv.launches, dict(krender.launches), kdr.launches)
     _, stats = step(create_train_state(cfg, model), batch)
     assert (kcv.launches, krender.launches, kdr.launches) == (
         before[0], before[1], before[2] + 2)

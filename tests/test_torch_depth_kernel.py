@@ -145,7 +145,7 @@ def test_kernel_wrappers_refuse_gradients(kernel, needs_grad):
             _meta(1, 3, 2, 2, 11), _meta(1, 8, 2, 2, 8), _meta(1, 3, 4, 4),
             _meta(1, 3, 3, 3), _meta(1, 4, 4), None, head, render_scale=1.0)
 
-    before = (kcv.launches, krender.launches)
+    before = (kcv.launches, dict(krender.launches))
     plain = {"cost_volume": "cost_volume_plain",
              "render": "render_rays_plain"}[kernel]
     with pytest.raises(ValueError, match=f"no backward.*{plain}"):

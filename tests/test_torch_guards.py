@@ -27,7 +27,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "enerf_tpu")
 def test_no_jax_import_in_subprocess():
     """Build and run the models (the DTU cascade, the human and the
     composite variants) on the CPU in a fresh interpreter, then check that
-    nothing of JAX, flax or enerf_tpu was imported."""
+    nothing of JAX, flax or enerf_tpu was imported. Building and rendering
+    loads nothing of the evaluation layer; the evaluator is then made from
+    the config."""
     code = (
         "import sys\n"
         "import enerf_tpu_torch as et\n"
@@ -56,6 +58,10 @@ def test_no_jax_import_in_subprocess():
         "out = et.render(et.build_model(cfg, device='cpu'),\n"
         "                make_composite_batch(cfg, H=64, W=96))\n"
         "assert out['rgb_level1'].shape == (1, 64 * 96, 3)\n"
+        "assert not any(m.startswith('enerf_tpu_torch.eval') for m in\n"
+        "               sys.modules)\n"
+        "from enerf_tpu_torch.factory import make_evaluator\n"
+        "make_evaluator(cfg, device='cpu', lpips_path='absent.npz')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         f"             {FORBIDDEN!r})\n"
         "print('LOADED', bad)\n")
@@ -102,15 +108,18 @@ def test_kernel_loader_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("kernel", ["cost_volume", "cost_volume_crop",
-                                    "render"])
+                                    "render", "render_l0", "render_cf19"])
 def test_wrappers_raise_off_cpu(kernel):
     """A tensor that is not on the CPU never takes the plain path: off a
-    CUDA device the wrapper raises instead of computing. (Under no_grad: the
+    CUDA device the wrapper raises instead of computing; at a head shape no
+    render kernel is built for (``render_cf19``: 19 image channels, 8
+    samples) it raises for the shape on any device. (Under no_grad: the
     render head's parameters require a gradient, which the wrapper refuses
     first, see ``tests/test_torch_depth_kernel.py``.)"""
     meta = dict(device="meta", dtype=torch.float32)
-    before = (kcv.launches, krender.launches)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+    before = (kcv.launches, dict(krender.launches))
+    match = "built for" if kernel == "render_cf19" else "CUDA"
+    with torch.no_grad(), pytest.raises(ValueError, match=match):
         if kernel.startswith("cost_volume"):
             window = None
             if kernel == "cost_volume_crop":
@@ -123,12 +132,14 @@ def test_wrappers_raise_off_cpu(kernel):
         else:
             from enerf_tpu_torch.models.nerf_head import NeRFHead
 
+            cf, n = {"render": (11, 2), "render_l0": (35, 8),
+                     "render_cf19": (19, 8)}[kernel]
             krender.render_rays(
-                torch.empty(1, 4, 2, 3, **meta), torch.empty(1, 4, 2, 3, **meta),
-                torch.empty(1, 4, 2, **meta), torch.empty(1, 3, 2, 2, 11, **meta),
+                torch.empty(1, 4, n, 3, **meta), torch.empty(1, 4, n, 3, **meta),
+                torch.empty(1, 4, n, **meta), torch.empty(1, 3, 2, 2, cf, **meta),
                 torch.empty(1, 8, 2, 2, 8, **meta), torch.empty(1, 3, 4, 4, **meta),
                 torch.empty(1, 3, 3, 3, **meta), torch.empty(1, 4, 4, **meta),
-                None, NeRFHead(11).to("meta"), render_scale=1.0)
+                None, NeRFHead(cf).to("meta"), render_scale=1.0)
     assert (kcv.launches, krender.launches) == before
 
 

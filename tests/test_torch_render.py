@@ -1,9 +1,12 @@
-"""The level-1 render stage: the port's ``render_rays`` on the CPU (the
-render kernel's plain version) vs the JAX jnp render — ``get_img_feat`` +
-``get_vox_feat_grid`` + ``NeRFHead`` + ``raw2outputs``, the path
-``enerf_tpu/models/enerf.py:_render_rays`` takes with the fused flags off —
-with the same NeRFHead weights, on grid rays, with all views real and with
-a padded view.
+"""The render stage of both cascade levels: the port's ``render_rays`` on
+the CPU (the render kernels' plain version) vs the JAX jnp render —
+``get_img_feat`` + ``get_vox_feat_grid`` + ``NeRFHead`` + ``raw2outputs``,
+the path ``enerf_tpu/models/enerf.py:_render_rays`` takes with the fused
+flags off — with the same NeRFHead weights, on grid rays, with all views
+real and with a padded view. Level 1 is the head shape of
+``csrc/render.cu`` (8 FPN channels + rgb, 2 samples, 8 planes); level 0
+that of ``csrc/render_l0.cu`` (32 + rgb, 8 samples in disparity, a tent
+over 64 planes, the image features at render scale 1/4), at S = 3 and 2.
 
 Tolerance rtol 1e-4 / atol 1e-5 on rgb, depth and weights: f32 on both
 sides; the head's matmuls and the softmaxes reassociate, as in
@@ -33,30 +36,47 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 H, W = 32, 48
 
 
-def _stage_inputs(n_src, seed=0):
-    """numpy inputs of the level-1 render stage of a synthetic frame, the
-    JAX head and its variables."""
+# per level: image feature channels (without rgb), samples a ray, volume
+# planes, disparity sampling, and the render scale of the (H, W) frame
+LEVELS = {1: (8, 2, 8, False, 1.0), 0: (32, 8, 64, True, 0.25)}
+
+
+def _stage_inputs(n_src, seed=0, level=1, slots=3):
+    """numpy inputs of one level's render stage of a synthetic frame whose
+    render frame at that level is (H, W), the JAX head and its
+    variables."""
     rng = np.random.RandomState(seed)
+    C, n, D, inv, rs = LEVELS[level]
     cfg = Config(enerf=ENeRFConfig(
-        test_input_views=3, train_input_views=(2, 3),
+        test_input_views=slots, train_input_views=(slots,),
         cas_config=CascadeConfig(volume_planes=(48, 8))))
-    batch = make_synthetic_batch(cfg, H=H, W=W, n_src=n_src)
+    H0, W0 = int(H / rs), int(W / rs)
+    batch = make_synthetic_batch(cfg, H=H0, W=W0, n_src=n_src)
     Hv, Wv = H // 2, W // 2
-    depth = (3.2 + 1.2 * rng.rand(1, Hv, Wv)).astype(np.float32)
-    std = (0.05 + 0.2 * rng.rand(1, Hv, Wv)).astype(np.float32)
-    nf = np.stack([np.full((1, Hv, Wv), 2.8), np.full((1, Hv, Wv), 5.0)],
-                  1).astype(np.float32)
-    rays = j_build_rays(jnp.asarray(batch["rays_1"]), jnp.asarray(depth),
-                        jnp.asarray(std), jnp.asarray(nf), False, 2.0, True)
-    xyz, uvd, z = j_sample_along_depth(rays, 2, False)
+    if inv:   # depth, its std and the volume bounds in disparity
+        depth = 1.0 / (3.2 + 1.2 * rng.rand(1, Hv, Wv))
+        std = 0.005 + 0.02 * rng.rand(1, Hv, Wv)
+        nf = np.stack([np.full((1, Hv, Wv), 1 / 2.5),
+                       np.full((1, Hv, Wv), 1 / 5.5)], 1)
+    else:
+        depth = 3.2 + 1.2 * rng.rand(1, Hv, Wv)
+        std = 0.05 + 0.2 * rng.rand(1, Hv, Wv)
+        nf = np.stack([np.full((1, Hv, Wv), 2.8),
+                       np.full((1, Hv, Wv), 5.0)], 1)
+    depth, std, nf = (x.astype(np.float32) for x in (depth, std, nf))
+    rays = j_build_rays(jnp.asarray(batch[f"rays_{level}"]),
+                        jnp.asarray(depth), jnp.asarray(std), jnp.asarray(nf),
+                        inv, 2.0, True)
+    xyz, uvd, z = j_sample_along_depth(rays, n, inv)
     uvd = uvd * jnp.array([1.0 / (W - 1), 1.0 / (H - 1), 1.0])
-    feat = rng.randn(1, 3, H, W, 8).astype(np.float32)
-    rgbs = np.asarray(j_unpreprocess(jnp.asarray(batch["src_inps"])))
+    feat = rng.randn(1, slots, H, W, C).astype(np.float32)
+    rgbs = np.asarray(j_unpreprocess(jnp.asarray(batch["src_inps"]),
+                                     render_scale=rs))
     img = np.concatenate([feat, rgbs], -1)
-    vol = rng.randn(1, 8, Hv, Wv, 8).astype(np.float32)
-    head = JNeRFHead(feat_ch=11, viewdir_agg=True)
+    vol = rng.randn(1, D, Hv, Wv, 8).astype(np.float32)
+    head = JNeRFHead(feat_ch=C + 3, viewdir_agg=True)
     variables = jax_variables(head, rng, np.zeros((1, 4, 8), np.float32),
-                              np.zeros((1, 4, 3, 15), np.float32))
+                              np.zeros((1, 4, slots, C + 7), np.float32))
     arrays = dict(world_xyz=np.asarray(xyz), uvd=np.asarray(uvd),
                   z_vals=np.asarray(z), img_feat_rgb=img, feat_volume=vol,
                   src_exts=batch["src_exts"], src_ixts=batch["src_ixts"],
@@ -64,34 +84,41 @@ def _stage_inputs(n_src, seed=0):
     return arrays, head, variables
 
 
-def _jax_render(a, head, variables):
+def _jax_render(a, head, variables, render_scale=1.0):
+    n = a["z_vals"].shape[-1]
     vox = j_get_vox_feat_grid(jnp.asarray(a["feat_volume"]),
                               jnp.asarray(a["uvd"]).reshape(1, -1, 3)[..., 2],
                               (H, W))
     x = j_get_img_feat(jnp.asarray(a["world_xyz"]),
                        jnp.asarray(a["img_feat_rgb"]),
                        jnp.asarray(a["src_exts"]), jnp.asarray(a["src_ixts"]),
-                       jnp.asarray(a["tar_ext"]), render_scale=1.0)
+                       jnp.asarray(a["tar_ext"]), render_scale=render_scale)
     raw = head.apply(variables, vox, x, jnp.asarray(a["view_mask"]))
-    return j_raw2outputs(raw.reshape(1, H * W, 2, 4), jnp.asarray(a["z_vals"]))
+    return j_raw2outputs(raw.reshape(1, H * W, n, 4), jnp.asarray(a["z_vals"]))
 
 
-def _port_args(a, head, device="cpu"):
+def _port_args(a, head, device="cpu", render_scale=1.0):
     t = {k: torch.from_numpy(np.array(v, np.float32)).to(device)
          for k, v in a.items()}
     return ((t["world_xyz"], t["uvd"], t["z_vals"], t["img_feat_rgb"],
              t["feat_volume"], t["src_exts"], t["src_ixts"], t["tar_ext"],
              t["view_mask"], head.to(device)),
-            dict(render_scale=1.0, grid_hw=(H, W)))
+            dict(render_scale=render_scale, grid_hw=(H, W)))
 
 
-@pytest.mark.parametrize("n_src", [3, 2])
-def test_render_stage_matches_jax(n_src):
-    a, jhead, variables = _stage_inputs(n_src)
+@pytest.mark.parametrize("level,slots,n_src", [
+    pytest.param(1, 3, 3, id="3"), pytest.param(1, 3, 2, id="2"),
+    pytest.param(0, 3, 3, id="level0-s3"),
+    pytest.param(0, 3, 2, id="level0-s3-padded-view"),
+    pytest.param(0, 2, 2, id="level0-s2")])
+def test_render_stage_matches_jax(level, slots, n_src):
+    a, jhead, variables = _stage_inputs(n_src, level=level, slots=slots)
     assert a["view_mask"].sum() == n_src
-    ref = jax.jit(lambda v: _jax_render(a, jhead, v))(variables)
-    head = load_flax_variables(NeRFHead(11).eval(), variables)
-    args, kw = _port_args(a, head)
+    assert a["img_feat_rgb"].shape[1] == slots
+    rs = LEVELS[level][4]
+    ref = jax.jit(lambda a, v: _jax_render(a, jhead, v, rs))(a, variables)
+    head = load_flax_variables(NeRFHead(jhead.feat_ch).eval(), variables)
+    args, kw = _port_args(a, head, render_scale=rs)
     with torch.no_grad():
         out = krender.render_rays(*args, **kw)
     assert set(out) == set(ref)
@@ -101,13 +128,16 @@ def test_render_stage_matches_jax(n_src):
 
 
 def test_head_params_layout():
-    """The kernel's flat weight buffer holds every head weight once, in
-    the order csrc/render.cu's HeadLayout reads (10,090 floats)."""
-    head = NeRFHead(11)
-    flat = krender.head_params(head)
-    assert flat.numel() == sum(p.numel() for p in head.parameters()) == 10090
-    assert torch.equal(flat[:44], head.agg.view_fc[0].weight.reshape(-1))
-    assert torch.equal(flat[-65:-1], head.color[2].weight.reshape(-1))
+    """The kernels' flat weight buffer holds every head weight once, in
+    the order the HeadLayout of csrc/render.cu (Cf = 11, 10,090 floats) and
+    csrc/render_l0.cu (Cf = 35, 14,050) reads."""
+    for cf, size in ((11, 10090), (35, 14050)):
+        head = NeRFHead(cf)
+        flat = krender.head_params(head)
+        assert flat.numel() == sum(p.numel() for p in head.parameters()) == size
+        assert torch.equal(flat[:4 * cf],
+                           head.agg.view_fc[0].weight.reshape(-1))
+        assert torch.equal(flat[-65:-1], head.color[2].weight.reshape(-1))
 
 
 
