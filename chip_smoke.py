@@ -23,8 +23,8 @@ Phases, each printing one JSON line:
            channels + rgb, n=8) vs its plain version at a 512x640 frame's
            20,480 level-0 rays: S=3, a padded view, S=2, S=4, a ragged ray
            count, a white background; times as for k1, beside its bound
-           (three TF32 passes on the tensor cores, as for k2: the card's
-           f32-accurate rate for these products) and its f32 CUDA-core one
+           (three TF32 passes on the tensor cores, the kernel's route, as
+           for k2) and the f32 CUDA-core one
   frames   the DTU eval forward (512x640, 3 source views, volume planes
            (48, 8), render_if (False, True), grid rays, seeded random
            weights) through ``build_model`` / ``render``: per-frame and
@@ -320,6 +320,39 @@ def kernel_symbol(sym: str) -> str:
     return sym
 
 
+def ptxas_resources(log: str, kernel: str) -> dict:
+    """ptxas' registers and spill bytes of each instance of ``kernel`` (a
+    ``template <int S>`` kernel), by S."""
+    out, name, spill = {}, None, (0, 0)
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = kernel_symbol(ln.split("'")[1])
+        elif "spill" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            spill = (int(m.group(1)), int(m.group(2))) if m else spill
+        elif "registers" in ln and name:
+            m = re.match(rf"{kernel}ILi(\d+)E", name)
+            if m:
+                out[int(m.group(1))] = {
+                    "registers": int(re.search(r"(\d+) registers", ln).group(1)),
+                    "spill_store_bytes": spill[0], "spill_load_bytes": spill[1]}
+            name, spill = None, (0, 0)
+    return out
+
+
+def render_l0_resources(_build) -> dict:
+    """K2-L0's registers, spill bytes and dynamic shared memory a block, by
+    S (the shared memory from the kernel's own C function)."""
+    import ctypes
+
+    res = ptxas_resources(_build.build_log("render_l0"), "render_l0_kernel")
+    fn = _build.load_library("render_l0").enerf_render_rays_l0_smem_bytes
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    for s in (2, 3, 4):
+        res.setdefault(s, {})["smem_bytes"] = fn(s)
+    return {str(k): v for k, v in sorted(res.items())}
+
+
 def phase_build():
     from enerf_tpu_torch.ops.kernels import _build
 
@@ -327,9 +360,12 @@ def phase_build():
     _build.build_all()
     for name in _build.KERNELS:
         _build.load_library(name)
-    ptxas = {n: ptxas_summary(log) for n, log in _build.BUILD_LOGS.items()}
+    ptxas = {n: ptxas_summary(_build.build_log(n)) for n in _build.KERNELS}
+    l0 = render_l0_resources(_build)
     emit("build", seconds=time.perf_counter() - t0, kernels=list(_build.KERNELS),
-         built_now=sorted(_build.BUILD_LOGS), ptxas=ptxas)
+         built_now=sorted(_build.BUILD_LOGS), ptxas=ptxas,
+         render_l0_resources=l0)
+    return l0
 
 
 def _synthetic(cfg, n_src, slots=None):
@@ -552,8 +588,7 @@ def phase_k2_l0(torch, cfg):
     view, S = 2, S = 4, a ray count that is no longer a grid (the last 5
     rays dropped), a white background; times as for k2, beside the same
     bound as k2's (the head's products in three TF32 passes on the tensor
-    cores, the fastest f32-accurate rate the card has for them) and the f32
-    CUDA-core one (the rate of the kernel's present route)."""
+    cores, the kernel's route) and the f32 CUDA-core one."""
     import enerf_tpu_torch as et
     from enerf_tpu_torch.models.layers import init_weights
     from enerf_tpu_torch.models.nerf_head import NeRFHead
@@ -1560,7 +1595,7 @@ def main() -> None:
 
     cfg = dtu_eval_config()
     smi_line = phase_device(torch)
-    phase_build()
+    l0_resources = phase_build()
     k1 = phase_k1(torch, cfg)
     k1_crop = phase_k1_crop(torch)
     k2 = phase_k2(torch, cfg)
@@ -1664,7 +1699,9 @@ def main() -> None:
          "plain_ms": full_l0["plain_ms"]["median"],
          "bound_ms": full_l0["bound_ms"], "bound_by": full_l0["bound_by"],
          "bound_f32_ms": full_l0["bound_f32_ms"],
-         "per_frame_by_path": on_paths("render_l0"), "library_ms": None,
+         "per_frame_by_path": on_paths("render_l0"),
+         # by S: ptxas' registers and spill bytes, the dynamic shared memory
+         "resources_by_s": l0_resources, "library_ms": None,
          "library_ms_reason": LIBRARY_NONE_RENDER},
         {"name": "depth_regression", "route": "cuda",
          "source": "enerf_tpu_torch/csrc/depth_regression.cu",

@@ -92,6 +92,7 @@ def _finish(name: str, started) -> None:
         raise KernelBuildError(f"nvcc failed for csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    out.with_suffix(".log").write_text(log)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> None:
@@ -108,6 +109,16 @@ def build_all(names: Iterable[str] = KERNELS) -> None:
                 errors.append(str(e))
     if errors:
         raise KernelBuildError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with ptxas' ``-v``) for kernel library ``name``, from
+    this process's build or the one kept beside the built library; "" if
+    neither exists."""
+    if name in BUILD_LOGS:
+        return BUILD_LOGS[name]
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def load_library(name: str) -> ctypes.CDLL:

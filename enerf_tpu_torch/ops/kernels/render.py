@@ -1,8 +1,8 @@
 """Fused render stage of one cascade level: the CUDA kernels
-``csrc/render.cu`` (level 1's head shape; the head's products on the
-tensor cores in three TF32 passes, f32-accurate) and ``csrc/render_l0.cu``
-(level 0's head shape; f32 on the CUDA cores), their wrapper, and their
-plain PyTorch version.
+``csrc/render.cu`` (level 1's head shape) and ``csrc/render_l0.cu`` (level
+0's head shape), each with the head's products on the tensor cores in
+three TF32 passes (f32-accurate), their wrapper, and their plain PyTorch
+version.
 
 Replaces ``enerf_tpu/ops/pallas/render.py:fused_render_rays`` (kernels
 ``_render_kernel`` → ``_render_math`` and ``_render_kernel_v5``). Per ray,

@@ -28,6 +28,7 @@ from enerf_tpu_torch import build_model, render
 from enerf_tpu_torch.ops.kernels.cost_volume import cost_volume_plain
 from enerf_tpu_torch.utils.convert import flax_state_dict, load_flax_variables
 from tests.test_torch_modules import seeded_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 H = W = 64
 RTOL = 1e-3

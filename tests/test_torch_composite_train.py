@@ -15,17 +15,20 @@ rounding alone moves a weight by up to 8.5e-4; the loss rtol 1e-5; each
 parameter's gradient at cosine ≥ 0.999 with JAX's, as
 ``tests/test_torch_train_step.py``, except the background branch's
 (``feature_net_bg``, ``cost_reg_*_bg``, ``nerf_*_bg``) at ≥ 0.99. Those
-differ from JAX's by more than rounding, for a cause not yet found: at
-this size the worst, ``cost_reg_0_bg.conv11.1.bias``, is at cosine 0.9967
-with JAX's, while the port's f32 and f64 gradients agree to 2e-5 and
-JAX's at two XLA optimization levels to 1.4e-4 (other bg planes, sample
-counts and JAX's unpacked head give 0.994–0.999); the forward agrees.
+differ from JAX's by more than rounding: at this size the worst,
+``cost_reg_0_bg.conv11.1.bias``, is at cosine 0.9967 with JAX's, while the
+port's f32 and f64 gradients agree to 2e-5 and JAX's at two XLA
+optimization levels to 1.4e-4 (other bg planes, sample counts and JAX's
+unpacked head give 0.994–0.999); the forward agrees.
 
-``test_composite_head_gradients_on_jax_inputs`` holds each head apart from
-that: JAX's recorded head inputs and output cotangent replayed through the
-port's head give JAX's head gradients at cosine ≥ 0.999 and relative L2
-≤ 1e-4, so the head and its backward agree and the end-to-end gap comes in
-with the heads' inputs."""
+``test_composite_head_gradients_on_jax_inputs`` and
+``test_composite_bg_stage_gradients_on_jax_inputs`` hold each module of
+that branch apart: JAX's recorded inputs and output cotangents replayed
+through the port's heads, bg FeatureNet and bg cost-regularization nets
+give JAX's gradients at cosine ≥ 0.999 and relative L2 ≤ 1e-4. So every
+stage and its backward agree, and the end-to-end gap is the conditioning
+of the batch-statistics forward: each stage's inputs differ between the
+two sides by rounding, which the forward amplifies."""
 
 import copy
 
@@ -50,6 +53,7 @@ from tests.test_torch_composite import (
     _port_cfg,
 )
 from tests.test_torch_modules import seeded_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 H = W = 64
 L = 1
@@ -144,45 +148,57 @@ def test_composite_train_gradients_match_jax(train_pair):
 
 # every head of the model: the fg layer's and the background's, per level
 HEADS = ("nerf_0_layer0", "nerf_1_layer0", "nerf_0_bg", "nerf_1_bg")
+# the background branch's stages upstream of its heads: its FeatureNet and
+# each level's cost-regularization net
+BG_STAGES = ("feature_net_bg", "cost_reg_0_bg", "cost_reg_1_bg")
 
 
 @pytest.fixture(scope="module")
 def head_replay(train_pair):
     """JAX's own inputs, output cotangent and parameter gradients of each
-    NeRF head in the fixture's training-mode forward and loss, recorded
-    without touching the JAX package: ``flax.linen.intercept_methods``
-    catches each ``NeRFHead.__call__``, keeps its arguments and adds a zero
-    probe to its output, whose gradient is the output's cotangent. A head's
+    NeRF head and each upstream stage of the background branch
+    (``BG_STAGES``) in the fixture's training-mode forward and loss,
+    recorded without touching the JAX package: ``flax.linen.intercept_methods``
+    catches each ``NeRFHead``, ``FeatureNet`` and ``MinCostRegNet``
+    ``__call__``, keeps its arguments and adds a zero probe to each of its
+    outputs, whose gradient is that output's cotangent. A module's
     parameters serve that one call only, so their gradient in the same
-    program is the vjp of that head alone at those inputs and that
-    cotangent. JAX runs its per-view jnp head here (``train_packed_render``
-    off), the head whose arguments the port's head takes; the gradient is
-    taken with respect to the probes and the heads' parameters only."""
+    program is the vjp of that module alone at those inputs and that
+    cotangent (with batch statistics in its BN, which are a function of
+    its inputs). JAX runs its per-view jnp head here
+    (``train_packed_render`` off), the head whose arguments the port's
+    head takes; one compiled gradient, with respect to the probes and the
+    recorded modules' parameters only."""
     import dataclasses
 
     from flax import linen as nn
 
+    from enerf_tpu.models.cost_reg import MinCostRegNet as JMinCostRegNet
+    from enerf_tpu.models.feature_net import FeatureNet as JFeatureNet
     from enerf_tpu.models.nerf_head import NeRFHead as JNeRFHead
 
     jcfg, jb = train_pair["jcfg"], train_pair["jb"]
     variables, targets = train_pair["variables"], train_pair["targets"]
     jmodel = JComposite(cfg=dataclasses.replace(
         jcfg.enerf, train_packed_render=False), train_mode=True)
+    names = HEADS + BG_STAGES
 
-    def run(head_params, probes=None):
+    def run(module_params, probes=None):
         recorded = {}
 
         def intercept(next_fun, args, kwargs, context):
             out = next_fun(*args, **kwargs)
-            if (isinstance(context.module, JNeRFHead)
-                    and context.method_name == "__call__"):
-                name = context.module.name
+            name = context.module.name
+            if (isinstance(context.module, (JNeRFHead, JFeatureNet,
+                                            JMinCostRegNet))
+                    and context.method_name == "__call__" and name in names):
+                assert name not in recorded, f"{name} called twice"
                 recorded[name] = (args, out)
                 if probes is not None:
-                    out = out + probes[name]
+                    out = jax.tree_util.tree_map(jnp.add, out, probes[name])
             return out
 
-        params = {**variables["params"], **head_params}
+        params = {**variables["params"], **module_params}
         with nn.intercept_methods(intercept):
             out, _ = jmodel.apply(
                 {"params": params, "batch_stats": variables["batch_stats"]},
@@ -190,16 +206,42 @@ def head_replay(train_pair):
         loss = sum(jnp.mean((out[k] - targets[k]) ** 2) for k in targets)
         return loss, recorded
 
-    heads = {k: variables["params"][k] for k in HEADS}
-    shapes = jax.eval_shape(lambda p: run(p)[1], heads)
-    assert set(shapes) == set(HEADS)
-    probes = {k: jnp.zeros(v[1].shape, v[1].dtype) for k, v in shapes.items()}
+    module_params = {k: variables["params"][k] for k in names}
+    shapes = jax.eval_shape(lambda p: run(p)[1], module_params)
+    assert set(shapes) == set(names)
+    probes = {k: jax.tree_util.tree_map(lambda o: jnp.zeros(o.shape, o.dtype),
+                                        v[1]) for k, v in shapes.items()}
     grad = jax.jit(jax.grad(lambda p, q: run(p, q), argnums=(0, 1),
-                            has_aux=True)).lower(heads, probes).compile(
+                            has_aux=True)).lower(module_params, probes).compile(
         compiler_options=FAST_COMPILE)
-    (jgrads, cotangents), recorded = grad(heads, probes)
+    (jgrads, cotangents), recorded = grad(module_params, probes)
     return {k: ([np.array(a) for a in recorded[k][0]],
-                np.array(cotangents[k]), jgrads[k]) for k in HEADS}
+                jax.tree_util.tree_map(np.array, cotangents[k]), jgrads[k])
+            for k in names}
+
+
+def _hold_module_gradients(model, name, module, jgrads):
+    """The port's ``module`` (a copy of ``name`` after its backward) holds
+    each parameter's gradient against JAX's at cosine ≥ 0.999 and relative
+    L2 error ≤ 1e-4; a parameter with no gradient in JAX (0 but for
+    rounding) has none in the port either. Returns the worst (cosine,
+    -relative L2, parameter)."""
+    ref = flax_leaves_by_param(model, {name: jgrads})
+    grads = {f"{name}.{k}": p.grad for k, p in module.named_parameters()}
+    assert set(ref) == set(grads)
+    worst = (2.0, 0.0, None)
+    for k, g_ref in ref.items():
+        if np.abs(g_ref).max() < 1e-7:
+            assert grads[k] is None or float(grads[k].abs().max()) < 1e-6, k
+            continue
+        g = grads[k].numpy().ravel().astype(np.float64)
+        g_ref = g_ref.ravel().astype(np.float64)
+        rel = np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref)
+        cos = float(np.dot(g, g_ref) / (np.linalg.norm(g)
+                                        * np.linalg.norm(g_ref)))
+        worst = min(worst, (cos, -rel, k))
+        assert cos >= 0.999 and rel <= 1e-4, (k, cos, rel)
+    return worst
 
 
 @pytest.mark.parametrize("head", HEADS)
@@ -217,16 +259,27 @@ def test_composite_head_gradients_on_jax_inputs(train_pair, head_replay, head):
     out = port_head(*[torch.from_numpy(a) for a in args])
     assert tuple(out.shape) == ct.shape
     out.backward(torch.from_numpy(ct))
-    ref = flax_leaves_by_param(model, {head: jgrads})
-    grads = {f"{head}.{k}": p.grad for k, p in port_head.named_parameters()}
-    assert set(ref) == set(grads)
-    worst = (2.0, 0.0, None)
-    for k, g_ref in ref.items():
-        g = grads[k].numpy().ravel().astype(np.float64)
-        g_ref = g_ref.ravel().astype(np.float64)
-        rel = np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref)
-        cos = float(np.dot(g, g_ref) / (np.linalg.norm(g)
-                                        * np.linalg.norm(g_ref)))
-        worst = min(worst, (cos, -rel, k))
-        assert cos >= 0.999 and rel <= 1e-4, (k, cos, rel)
+    worst = _hold_module_gradients(model, head, port_head, jgrads)
     print(f"{head}: worst gradient (cosine, -relative L2, parameter) {worst}")
+
+
+@pytest.mark.parametrize("stage", BG_STAGES)
+def test_composite_bg_stage_gradients_on_jax_inputs(train_pair, head_replay,
+                                                    stage):
+    """Each upstream stage of the background branch held as the heads are:
+    JAX's recorded inputs and output cotangents replayed through the
+    port's stage in training mode (batch statistics in BN), its parameter
+    gradients against JAX's at cosine ≥ 0.999 and relative L2 ≤ 1e-4.
+    That they hold shows the stages and their backwards agree, and the
+    end-to-end gap of the branch (``BG_COSINE``) is the conditioning of
+    the forward, whose inputs differ between the two sides by rounding."""
+    args, cts, jgrads = head_replay[stage]
+    model = train_pair["model"]
+    port = copy.deepcopy(model.get_submodule(stage)).train()
+    for p in port.parameters():
+        p.grad = None
+    outs = port(*[torch.from_numpy(a) for a in args])
+    assert [tuple(o.shape) for o in outs] == [c.shape for c in cts]
+    torch.autograd.backward(list(outs), [torch.from_numpy(c) for c in cts])
+    worst = _hold_module_gradients(model, stage, port, jgrads)
+    print(f"{stage}: worst gradient (cosine, -relative L2, parameter) {worst}")

@@ -21,6 +21,7 @@ from enerf_tpu.ops.warp import _warp_coords as j_warp_coords
 from enerf_tpu.ops.warp import build_cost_volume as j_build_cost_volume
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.warp import build_cost_volume
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 

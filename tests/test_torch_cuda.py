@@ -284,10 +284,13 @@ def _render_l0_case(cuda, n_src, slots=3, seed=0, cut=0, cf=35):
     (3, 3, 0, False),      # S = 3, the default cascade's level 0
     (3, 2, 0, False),      # a padded view
     (2, 2, 0, False),      # S = 2
-    (4, 4, 0, False),      # S = 4: the warp's 32 lanes, 8 samples x 4 views
+    (4, 4, 0, False),      # S = 4: the most scratch a warp holds
     (4, 3, 0, False),
     (3, 3, 5, False),      # a ragged ray count, no longer a grid
     (3, 3, 0, True),       # white background
+    (3, 3, 1, False),      # an odd ray count: the last tile's second ray is empty
+    (3, 3, H * W - 1, False),   # N = 1: one tile, its second ray empty
+    (2, 1, 0, False),      # one valid view: var over a single view is 0
 ])
 def test_render_l0_kernel_matches_plain(cuda, slots, n_src, cut, white):
     args, kw = _render_l0_case(cuda, n_src, slots, seed=10 * slots + n_src,
@@ -298,13 +301,20 @@ def test_render_l0_kernel_matches_plain(cuda, slots, n_src, cut, white):
 
 
 @pytest.mark.cuda
-def test_render_l0_kernel_batch_of_two(cuda):
-    """Two frames in one call, the second with a padded view: each ray
-    reads its own frame's cameras, view mask, images and volume."""
-    a, kw = _render_l0_case(cuda, 3, seed=1)
-    b, _ = _render_l0_case(cuda, 2, seed=2)
+@pytest.mark.parametrize("slots,valid,cut", [
+    (3, (3, 2), 0),        # the second frame with a padded view
+    (4, (4, 2), 3),        # S = 4 and an odd ray count: a tile never holds
+                           # two frames' rays, so each frame's last tile
+                           # has an empty second ray
+])
+def test_render_l0_kernel_batch_of_two(cuda, slots, valid, cut):
+    """Two frames in one call with different counts of valid views: each
+    ray reads its own frame's cameras, view mask, images and volume."""
+    a, kw = _render_l0_case(cuda, valid[0], slots, seed=1, cut=cut)
+    b, _ = _render_l0_case(cuda, valid[1], slots, seed=2, cut=cut)
     args = tuple(torch.cat([x, y]).contiguous() for x, y in zip(a[:9], b[:9]))
-    assert args[8].tolist() == [[1, 1, 1], [1, 1, 0]]
+    assert args[8].tolist() == [[1] * v + [0] * (slots - v) for v in valid]
+    assert args[0].shape[:2] == (2, H * W - cut)
     _check_render(args + (a[9],), kw, kernel="render_l0")
 
 

@@ -42,6 +42,7 @@ from enerf_tpu_torch.ops.depth import depth_regression
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import depth_regression as kdr
 from enerf_tpu_torch.ops.kernels import render as krender
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 D_TOL = dict(rtol=1e-5, atol=1e-6)
 S_TOL = dict(rtol=1e-4, atol=1e-6)

@@ -37,6 +37,7 @@ from enerf_tpu_torch.factory import make_evaluator
 from enerf_tpu_torch.train.trainer import Trainer
 from enerf_tpu_torch.utils.convert import load_flax_variables
 from tests.test_torch_modules import seeded_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 
 def _images(seed, shape=(32, 48, 3)):

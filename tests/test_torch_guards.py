@@ -19,6 +19,7 @@ from enerf_tpu_torch.config import dtu_eval_config, make_cfg
 from enerf_tpu_torch.ops.kernels import _build
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import render as krender
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "enerf_tpu")

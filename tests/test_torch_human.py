@@ -31,6 +31,7 @@ from enerf_tpu_torch.config import human_mask
 from enerf_tpu_torch.models.enerf_human import ENeRFHuman
 from enerf_tpu_torch.utils.convert import load_flax_variables
 from tests.test_torch_modules import seeded_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 ATOL = {"rgb_level1": 3e-4, "weights_level1": 3e-4, "depth_level1": 3e-3,
         "depth_mvs_level1": 3e-3, "std_level1": 3e-3}

@@ -22,6 +22,7 @@ from enerf_tpu_torch.models.cost_reg import CostRegNet, MinCostRegNet
 from enerf_tpu_torch.models.feature_net import FeatureNet
 from enerf_tpu_torch.models.nerf_head import NeRFHead
 from enerf_tpu_torch.utils.convert import load_flax_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

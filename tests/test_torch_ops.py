@@ -23,6 +23,7 @@ from enerf_tpu.ops import ibr as jibr
 from enerf_tpu.ops import rays as jrays
 from enerf_tpu.ops import sampling as jsamp
 from enerf_tpu_torch.ops import camera, composite, depth, ibr, rays, sampling
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

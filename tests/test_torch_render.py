@@ -31,6 +31,7 @@ from enerf_tpu_torch.models.nerf_head import NeRFHead
 from enerf_tpu_torch.ops.kernels import render as krender
 from enerf_tpu_torch.utils.convert import load_flax_variables
 from tests.test_torch_modules import jax_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 H, W = 32, 48
@@ -163,39 +164,59 @@ def _linear_tf32(passes):
     return linear
 
 
-@pytest.mark.parametrize("passes", [3, 1])
-def test_render_tf32_split_precision(monkeypatch, passes):
-    """The render kernel's precision scheme on the CPU, without JAX: every
-    Linear of the head (the kernel keeps four small ones in f32, so this
-    is the harder case) in three TF32 passes stays within the kernel's
-    tolerance of the f32 plain path (rtol 1e-4 / atol 2e-4, as
-    chip_smoke.py's K2_TOL); one TF32 pass leaves it."""
+def _precision_case(level, g):
+    """The render stage's inputs for the precision test on grid rays of an
+    (H, W) render frame: level 1's head (8 FPN channels + rgb, 2 samples,
+    8 planes, render scale 1) or level 0's (32 + rgb, 8 samples in
+    disparity, 64 planes, render scale 1/4), seeded weights."""
     from enerf_tpu_torch.config import dtu_eval_config
     from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch as t_batch
     from enerf_tpu_torch.models.layers import init_weights
     from enerf_tpu_torch.ops.ibr import unpreprocess
     from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 
-    g = torch.Generator().manual_seed(11)
+    C, n, D, inv, rs = LEVELS[level]
     b = {k: torch.from_numpy(v) for k, v in
-         t_batch(dtu_eval_config(), H=H, W=W, n_src=3).items()}
-    head = NeRFHead(11)
+         t_batch(dtu_eval_config(), H=int(H / rs), W=int(W / rs),
+                 n_src=3).items()}
+    head = NeRFHead(C + 3)
     init_weights(head, g, kaiming_linear=True)
     head = head.eval()
     Hv, Wv = H // 2, W // 2
-    depth = 3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)
-    std = 0.05 + 0.2 * torch.rand(1, Hv, Wv, generator=g)
-    nf = torch.stack([torch.full((1, Hv, Wv), 2.8),
-                      torch.full((1, Hv, Wv), 5.0)], 1)
-    rays = build_rays(b["rays_1"], depth, std, nf, False, 2.0, grid=True)
-    xyz, uvd, z = sample_along_depth(rays, 2, False)
+    if inv:
+        depth = 1 / (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g))
+        std = 0.005 + 0.02 * torch.rand(1, Hv, Wv, generator=g)
+        nf = torch.stack([torch.full((1, Hv, Wv), 1 / 2.5),
+                          torch.full((1, Hv, Wv), 1 / 5.5)], 1)
+    else:
+        depth = 3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)
+        std = 0.05 + 0.2 * torch.rand(1, Hv, Wv, generator=g)
+        nf = torch.stack([torch.full((1, Hv, Wv), 2.8),
+                          torch.full((1, Hv, Wv), 5.0)], 1)
+    rays = build_rays(b[f"rays_{level}"], depth, std, nf, inv, 2.0, grid=True)
+    xyz, uvd, z = sample_along_depth(rays, n, inv)
     uvd = uvd * torch.tensor([1 / (W - 1), 1 / (H - 1), 1.0])
-    img = torch.cat([torch.randn(1, 3, H, W, 8, generator=g),
-                     unpreprocess(b["src_inps"])], -1)
-    vol = torch.randn(1, 8, Hv, Wv, 8, generator=g)
+    img = torch.cat([torch.randn(1, 3, H, W, C, generator=g),
+                     unpreprocess(b["src_inps"], rs)], -1)
+    vol = torch.randn(1, D, Hv, Wv, 8, generator=g)
     args = (xyz, uvd, z, img, vol, b["src_exts"], b["src_ixts"], b["tar_ext"],
             b["view_mask"], head)
-    kw = dict(render_scale=1.0, grid_hw=(H, W))
+    return args, dict(render_scale=rs, grid_hw=(H, W))
+
+
+@pytest.mark.parametrize("level,passes", [
+    pytest.param(1, 3, id="3"), pytest.param(1, 1, id="1"),
+    pytest.param(0, 3, id="level0-3"), pytest.param(0, 1, id="level0-1")])
+def test_render_tf32_split_precision(monkeypatch, level, passes):
+    """The render kernels' precision scheme on the CPU, without JAX, at
+    both head shapes (level 1's of csrc/render.cu, level 0's of
+    csrc/render_l0.cu, whose K sums are longer: 105 and 127 inputs against
+    33 and 103): every Linear of the head (the kernels keep four small ones
+    in f32, so this is the harder case) in three TF32 passes stays within
+    the kernels' tolerance of the f32 plain path (rtol 1e-4 / atol 2e-4, as
+    chip_smoke.py's K2_TOL); one TF32 pass leaves it at both levels."""
+    g = torch.Generator().manual_seed(11)
+    args, kw = _precision_case(level, g)
     with torch.no_grad():
         ref = krender.render_rays_plain(*args, **kw)
         monkeypatch.setattr(torch.nn.functional, "linear", _linear_tf32(passes))

@@ -53,6 +53,7 @@ from enerf_tpu_torch.train.vgg import (
     load_vgg16_params,
     vgg_perceptual_loss,
 )
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 H = W = 32
 

@@ -48,6 +48,7 @@ from enerf_tpu_torch.utils.convert import (
     load_flax_variables,
 )
 from tests.test_torch_modules import randomize_batch_stats, to_numpy_tree
+from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 H = W = 32
 LR = 1e-3
