@@ -51,8 +51,23 @@ Phases, each printing one JSON line:
            scored by ``make_evaluator(cfg)`` (PSNR, SSIM, LPIPS on seeded
            random weights): frame and stage times (first frame excluded),
            launches a frame, the metric dict; the kernel path vs the plain
-           path, the card vs the CPU at 128x160; then ``val_profile`` and
-           ``val_kernels`` (as ``human_kernels``)
+           path, the card vs the CPU at 128x160; the bytes a frame uploads
+           (every array of the batch, and the device inputs that are
+           uploaded); then ``val_profile`` and ``val_kernels`` (as
+           ``human_kernels``)
+  run_dtu  the data path from files on disk: a DTU-layout scene scan114
+           written at DTU's sizes under build/dtu_fixture (49 MVSNet
+           cameras, 49 512x640 PNGs whose rows cycle through the five PNG
+           filters, 1200x1600 PFM depths of the four dtu_val views) and
+           evaluated by ``python -m enerf_tpu_torch.run``'s ``main`` in this
+           process on configs/enerf/dtu_pretrain.yaml (4 frames, launches a
+           frame K1 2, K4 2, render 1, render_l0 1); the first frame vs the
+           plain path, the metrics vs ``Trainer.val`` + ``make_evaluator``
+           over the same loader, ``--type dataset`` in a subprocess, the
+           native host library loaded; the loader's host ms a batch and its
+           parts, frame ms (CUDA events, first frame excluded), bytes
+           uploaded a frame, the card's name and power limit; then
+           ``run_dtu_profile`` (device busy, idle share over two frames)
   k4       the depth-regression kernel vs its plain version, forward and
            gradient, at the train shapes of both cascade levels and the
            eval level-0 shape, then 5 planes over a ragged pixel count, a
@@ -72,7 +87,7 @@ Phases, each printing one JSON line:
            128x160 step on the card vs the same step on the CPU
   train_profile  torch.profiler over two train steps
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
-path: frames, human, composite, val, train; its calls of a human, a
+path: frames, human, composite, val, run_dtu, train; its calls of a human, a
 composite and a val frame in ``per_frame_by_path``), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Float32 throughout, TF32 off. A bound
@@ -92,6 +107,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 H, W = 512, 640
@@ -378,9 +395,7 @@ def _synthetic(cfg, n_src, slots=None):
     if slots is not None:
         cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
             cfg.enerf, test_input_views=slots, train_input_views=(slots,)))
-    batch = make_synthetic_batch(cfg, H=H, W=W, n_src=n_src)
-    batch.pop("tar_img")
-    return batch
+    return make_synthetic_batch(cfg, H=H, W=W, n_src=n_src)
 
 
 def phase_k1(torch, cfg):
@@ -397,7 +412,7 @@ def phase_k1(torch, cfg):
     for name, level, n_src, cut in (("level0", 0, 3, 0), ("level1", 1, 3, 0),
                                     ("level1_padded_view", 1, 2, 0),
                                     ("level0_ragged", 0, 3, 1)):
-        b = et.to_device(_synthetic(cfg, n_src), "cuda")
+        b = et.device_batch(_synthetic(cfg, n_src), "cuda")
         C = (32, 16)[level]
         s = cas.im_feat_scale[level]
         feats = torch.randn(1, 3, int(H * s), int(W * s), C, generator=g).cuda()
@@ -462,7 +477,7 @@ def phase_k1_crop(torch):
             ("b2_level1", 1, [(10, 20), (250, 150)], None)):
         B = len(origins) if origins else 1
         bnp = make_composite_batch(cfg, H=H, W=W, batch_size=B)
-        b = et.to_device(bnp, "cuda")
+        b = et.device_batch(bnp, "cuda")
         vs, s = cas.volume_scale[level], cas.im_feat_scale[level]
         C, D = (32, 16)[level], cas.volume_planes[level]
         hw = hw or (int(fg_h * vs), int(fg_w * vs))
@@ -528,7 +543,7 @@ def phase_k2(torch, cfg):
             ("ragged_tile", 3, 3, 5, False), ("white_bkgd", 3, 3, 0, True),
             # the human frame's ray count: a (384, 224) window, S = 2
             ("human_window", 2, 2, "window", False)):
-        b = et.to_device(_synthetic(cfg, n_src, slots), "cuda")
+        b = et.device_batch(_synthetic(cfg, n_src, slots), "cuda")
         Hv, Wv = H // 2, W // 2
         depth = (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g)).cuda()
         std = (0.05 + 0.2 * torch.rand(1, Hv, Wv, generator=g)).cuda()
@@ -607,7 +622,7 @@ def phase_k2_l0(torch, cfg):
             ("level0_s3", 3, 3, 0, False), ("padded_view", 3, 2, 0, False),
             ("s2", 2, 2, 0, False), ("s4", 4, 4, 0, False),
             ("ragged", 3, 3, 5, False), ("white_bkgd", 3, 3, 0, True)):
-        b = et.to_device(_synthetic(cfg, n_src, slots), "cuda")
+        b = et.device_batch(_synthetic(cfg, n_src, slots), "cuda")
         depth = (1 / (3.2 + 1.2 * torch.rand(1, Hv, Wv, generator=g))).cuda()
         std = (0.005 + 0.02 * torch.rand(1, Hv, Wv, generator=g)).cuda()
         nf = torch.stack([torch.full((1, Hv, Wv), 1 / 2.5),
@@ -974,7 +989,7 @@ def phase_frames(torch, cfg):
     randomize_bn_stats(torch, model, seed=0)
     # the frame's inputs live on the card before timing, as the reference
     # run.py moves its batch before the timed forward
-    batch = et.to_device(_synthetic(cfg, 3), "cuda")
+    batch = et.device_batch(_synthetic(cfg, 3), "cuda")
     shapes = {"rgb_level1": [1, H * W, 3], "depth_level1": [1, H * W],
               "weights_level1": [1, H * W, 2],
               "depth_mvs_level1": [1, H // 2, W // 2],
@@ -1004,9 +1019,8 @@ def phase_human(torch):
     model = et.build_model(cfg, seed=0)
     randomize_bn_stats(torch, model, seed=1)
     batch_np = make_synthetic_batch(cfg, H=HH, W=WH)
-    batch_np.pop("tar_img")
     batch_np["mask_at_box"] = human_mask(HH, WH)
-    batch = et.to_device(batch_np, "cuda")
+    batch = et.device_batch(batch_np, "cuda")
     N = HH * WH
     shapes = {"rgb_level1": [1, N, 3], "depth_level1": [1, N],
               "weights_level1": [1, N, 2],
@@ -1074,8 +1088,7 @@ def phase_composite(torch):
     model = et.build_model(cfg, seed=0)
     randomize_bn_stats(torch, model, seed=2)
     batch_np = make_composite_batch(cfg, H=H, W=W)
-    batch_np.pop("tar_img")
-    batch = et.to_device(batch_np, "cuda")
+    batch = et.device_batch(batch_np, "cuda")
     N = H * W
     shapes = {"rgb_level1": [1, N, 3], "depth_level1": [1, N],
               "weights_level1": [1, N, 2]}
@@ -1090,7 +1103,6 @@ def phase_composite(torch):
     err_cpu = {}
     for where, xy in (("centered", None), ("edge", (140, 100))):
         small = make_composite_batch(small_cfg, H=128, W=160)
-        small.pop("tar_img")
         if xy is not None:
             small["bbox"][0, 0, :2] = xy
         err_cpu[where] = card_vs_cpu(torch, f"composite 128x160 {where}", sm,
@@ -1154,11 +1166,8 @@ def phase_val(torch):
             cfg.enerf, grid_rays=True))
         model = et.build_model(cfg, seed=0)
         randomize_bn_stats(torch, model, seed=3)
-        batches = []
-        for i in range(VAL_BATCHES):
-            b = make_synthetic_batch(cfg, H=H, W=W, seed=i)
-            b.pop("tar_img")
-            batches.append(b)
+        batches = [make_synthetic_batch(cfg, H=H, W=W, seed=i)
+                   for i in range(VAL_BATCHES)]
         lpips_path = str(Path(tmp) / "lpips_vgg.npz")
         write_seeded_weights(lpips_path, seed=9)
         evaluator = make_evaluator(cfg, lpips_path=lpips_path)
@@ -1184,7 +1193,14 @@ def phase_val(torch):
         fail(f"val: metrics {result}")
     model.eval()                     # Trainer.val leaves it in training mode
 
-    batch = et.to_device(batches[0], "cuda")
+    batch = et.device_batch(batches[0], "cuda")
+    # the bytes a frame uploads: every array of the batch (what the upload
+    # moved before host-only keys were kept on the host) and the device
+    # inputs alone (``device_batch``), with the upload's time
+    upload_all = sum(4 * v.size for v in batches[0].values())
+    upload_dev = nbytes(*batch.values())
+    upload_ms = time_ms(torch, lambda: et.device_batch(batches[0], "cuda"),
+                        reps=10)
     out = et.render(model, batch)
     n0, n1 = (H // 4) * (W // 4), H * W
     shapes = {"rgb_level0": [1, n0, 3], "depth_level0": [1, n0],
@@ -1203,7 +1219,6 @@ def phase_val(torch):
     err = {k: max_err(torch, out[k], ref[k], E2E_RTOL, E2E_ATOL[k],
                       f"val {k} kernel vs plain path") for k in out}
     small = make_synthetic_batch(cfg, H=128, W=160)
-    small.pop("tar_img")
     err_cpu = card_vs_cpu(torch, "val 128x160", model, small)
     timed = stages[1:]               # the first frame excluded
     timed_ms = frame_ms[1:]
@@ -1218,6 +1233,8 @@ def phase_val(torch):
          median_stage_ms={k: statistics.median(st[k] for st in timed)
                           for k in timed[0]},
          val_seconds=val_s, metrics=result, peak_mem_gb=peak_gb,
+         upload_bytes_per_frame_all_arrays=upload_all,
+         upload_bytes_per_frame=upload_dev, upload_ms=upload_ms,
          kernel_vs_plain_max_abs_err=err,
          e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL},
          card_vs_cpu_128x160_max_abs_err=err_cpu)
@@ -1225,6 +1242,240 @@ def phase_val(torch):
                    "frame")
     cases = hold_path_kernels(torch, "val", model, batch, VAL_PER_FRAME)
     return launches, cases
+
+
+DTU_SCENE = "scan114"
+DTU_FOCAL = 1446.0          # px at 512x640, DTU's (361.5 at 1/4 resolution)
+DTU_DISTANCE = 650.0        # camera to scene centre; depths in [425, 905]
+DTU_RADIUS = 130.0          # the procedural object's radius
+DTU_FILTERS = (0, 1, 2, 3, 4)   # PNG row filters, cycled over the rows
+RUN_DTU_FRAMES = 4          # data/mvsnerf/pairs.th's dtu_val views
+
+
+def _dtu_cameras():
+    """49 world-to-camera extrinsics on a 7x7 arc of azimuths and
+    elevations, ``DTU_DISTANCE`` from the origin, looking at it."""
+    exts = []
+    for el in np.linspace(0.15, 0.65, 7):
+        for az in np.linspace(-0.5, 0.5, 7):
+            eye = DTU_DISTANCE * np.array([np.cos(el) * np.sin(az),
+                                           -np.cos(el) * np.cos(az),
+                                           np.sin(el)])
+            fwd = -eye / np.linalg.norm(eye)
+            right = np.cross(fwd, [0.0, 0.0, 1.0])
+            right /= np.linalg.norm(right)
+            R = np.stack([right, np.cross(fwd, right), fwd])
+            ext = np.eye(4)
+            ext[:3, :3], ext[:3, 3] = R, -R @ eye
+            exts.append(ext)
+    return exts
+
+
+def _dtu_trace(ext, ixt, xs, ys, phases):
+    """(z-depth, 0 where the ray misses; rgb in [0, 1]) of the pixels
+    (xs, ys) of a camera looking at the textured sphere of radius
+    ``DTU_RADIUS`` at the origin, over a gradient background."""
+    R, t = ext[:3, :3], ext[:3, 3]
+    o = -R.T @ t
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
+    d = pix @ np.linalg.inv(ixt).T @ R           # unit z in the camera
+    a = np.einsum("...c,...c->...", d, d)
+    b = d @ o
+    disc = b * b - a * (o @ o - DTU_RADIUS ** 2)
+    z = (-b - np.sqrt(np.maximum(disc, 0.0))) / a
+    hit = (disc > 0) & (z > 0)
+    p = (o + d * z[..., None]) / DTU_RADIUS
+    fg = 0.5 + 0.45 * np.sin(p @ phases[:3].T * 12.0 + phases[3])
+    bg = 0.25 + 0.2 * np.sin(d[..., :1] * 3.0 + phases[3])
+    return np.where(hit, z, 0.0), np.where(hit[..., None], fg, bg)
+
+
+def write_dtu_scene(root: Path, seed: int = 0) -> dict:
+    """A DTU-layout scene ``DTU_SCENE`` under ``root/dtu`` at DTU's sizes:
+    49 MVSNet cameras (intrinsics at 1/4 resolution), 49 512x640 RGB PNGs
+    written by the port's PNG writer with the rows cycling through all five
+    filter types, and 1200x1600 PFM depths of the ``dtu_val`` views, of a
+    seeded procedural object. Returns the seconds each part took."""
+    import shutil
+
+    from enerf_tpu_torch.datasets.dtu import load_pairs, write_pfm
+    from enerf_tpu_torch.utils.image_io import imwrite
+
+    phases = np.random.RandomState(seed).uniform(-1.0, 1.0, (4, 3))
+    base = root / "dtu"
+    shutil.rmtree(base, ignore_errors=True)
+    for sub in ("Cameras/train", f"Rectified/{DTU_SCENE}_train",
+                f"Depths/{DTU_SCENE}"):
+        (base / sub).mkdir(parents=True)
+    ixt = np.array([[DTU_FOCAL, 0, W / 2], [0, DTU_FOCAL, H / 2], [0, 0, 1]])
+    ixt4 = ixt.copy()
+    ixt4[:2] /= 4
+    secs = {"images": 0.0, "depths": 0.0}
+    ys, xs = np.mgrid[0:H, 0:W]
+    dys, dxs = np.mgrid[0:1200, 0:1600]
+    val = set(load_pairs()["dtu_val"])
+    for i, ext in enumerate(_dtu_cameras()):
+        rows = ["extrinsic", *(" ".join(f"{v:.9g}" for v in r) for r in ext),
+                "", "intrinsic",
+                *(" ".join(f"{v:.9g}" for v in r) for r in ixt4),
+                "", "425.0 2.5"]
+        (base / f"Cameras/train/{i:08d}_cam.txt").write_text("\n".join(rows))
+        t0 = time.perf_counter()
+        _, rgb = _dtu_trace(ext, ixt, xs, ys, phases)
+        imwrite(str(base / f"Rectified/{DTU_SCENE}_train/"
+                           f"rect_{i + 1:03d}_3_r5000.png"),
+                (rgb * 255).astype(np.uint8), filters=DTU_FILTERS)
+        secs["images"] += time.perf_counter() - t0
+        if i in val:
+            # full-resolution pixel (u, v) of DTU's depth maps is pixel
+            # (u / 2 - 80, v / 2 - 44) of the 512x640 image: the loader
+            # halves the map and crops [44:556, 80:720]
+            t0 = time.perf_counter()
+            z, _ = _dtu_trace(ext, ixt, dxs / 2.0 - 80, dys / 2.0 - 44,
+                              phases)
+            write_pfm(str(base / f"Depths/{DTU_SCENE}/depth_map_{i:04d}.pfm"),
+                      z.astype(np.float32))
+            secs["depths"] += time.perf_counter() - t0
+    return secs
+
+
+def host_breakdown_ms(root: Path, cfg) -> dict:
+    """The loader's host work of a test batch, each part timed alone on
+    the fixture (median of 5, one thread): one PNG decode, its u8 -> float
+    normalize, one PFM read at half resolution, the rays of both levels."""
+    from enerf_tpu_torch import native
+    from enerf_tpu_torch.datasets.dtu import read_pfm_depth_half
+    from enerf_tpu_torch.datasets.ray_utils import build_rays_host
+    from enerf_tpu_torch.utils.image_io import imread
+
+    png = str(root / f"dtu/Rectified/{DTU_SCENE}_train/rect_001_3_r5000.png")
+    pfm = str(next((root / f"dtu/Depths/{DTU_SCENE}").glob("*.pfm")))
+    u8 = imread(png)
+    img = native.u8_to_unit(u8)
+    ext = np.eye(4, dtype=np.float32)
+    ixt = np.array([[DTU_FOCAL, 0, W / 2], [0, DTU_FOCAL, H / 2], [0, 0, 1]],
+                   np.float32)
+    msk = np.ones((H, W), np.uint8)
+    cas = cfg.enerf.cas_config
+
+    def median_ms(fn, n=5):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    return {"png_decode": median_ms(lambda: imread(png)),
+            "u8_to_unit": median_ms(lambda: native.u8_to_unit(u8)),
+            "pfm_half": median_ms(lambda: read_pfm_depth_half(pfm)),
+            "rays_both_levels": median_ms(lambda: [
+                build_rays_host(img, ext, ixt, msk, cas.render_scale[i])
+                for i in range(cas.num)])}
+
+
+def phase_run_dtu(torch, smi_line: str):
+    """The data path from files on disk: a DTU-layout scene written at
+    DTU's sizes (``write_dtu_scene``) evaluated through the port's CLI,
+    ``enerf_tpu_torch.run``'s ``main`` in this process (``--type evaluate``
+    on ``configs/enerf/dtu_pretrain.yaml``, ``test_dataset.scene
+    scan114``), its YAML read by the port's reader, its batches by the
+    port's loader and DTU dataset, rendered by the model with all four
+    kernels, scored by the evaluator; the launch counts reset just before
+    and read just after. Then the first frame vs the plain path, the
+    metrics vs ``Trainer.val`` + ``make_evaluator`` over the same loader,
+    ``python -m enerf_tpu_torch.run --type dataset`` in a subprocess, a
+    profile of two frames, and the loader's host parts alone."""
+    import os
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch import native, run
+    from enerf_tpu_torch.config import make_cfg
+    from enerf_tpu_torch.datasets.loader import make_data_loader
+    from enerf_tpu_torch.factory import make_evaluator
+    from enerf_tpu_torch.train import Trainer, create_train_state
+
+    if not native.available():
+        fail("run_dtu: the native host library did not build or load (g++): "
+             "the loader would run its numpy fallbacks")
+    fixture = ROOT / "build" / "dtu_fixture"
+    cwd = os.getcwd()
+    os.chdir(ROOT)       # the loaders read data/mvsnerf/pairs.th from here
+    try:
+        t0 = time.perf_counter()
+        secs = write_dtu_scene(fixture)
+        write_s = time.perf_counter() - t0
+        args = ["--type", "evaluate", "--cfg_file",
+                "configs/enerf/dtu_pretrain.yaml", "test_dataset.scene",
+                DTU_SCENE, "workspace", str(fixture)]
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run.main(args)
+        cli_s = time.perf_counter() - t0
+        launches = read_launches()
+        if res["frames"] != RUN_DTU_FRAMES:
+            fail(f"run_dtu: {res['frames']} frames, expected {RUN_DTU_FRAMES}")
+        expect = {k: v * RUN_DTU_FRAMES for k, v in VAL_PER_FRAME.items()}
+        if launches != expect:
+            fail(f"run_dtu: kernel launches on the main path {launches}, "
+                 f"expected {expect}")
+        cfg = make_cfg(args[3], args[4:])
+        model, batch = res["model"], res["first_batch"]
+        with plain_path():
+            ref = et.render(model, batch)
+        err = {k: max_err(torch, torch.from_numpy(v).cuda(), ref[k], E2E_RTOL,
+                          E2E_ATOL[k], f"run_dtu {k} kernel vs plain path")
+               for k, v in res["first_out"].items()}
+        val = Trainer(cfg, train_step=None).val(
+            0, create_train_state(cfg, run.load_eval_model(cfg, "cuda")),
+            make_data_loader(cfg, "test"), evaluator=make_evaluator(cfg))
+        metrics = res["metrics"]
+        if not ({"psnr", "ssim"} <= set(metrics) and all(
+                np.isfinite(v) for v in metrics.values())):
+            fail(f"run_dtu: metrics {metrics}")
+        metric_diff = {k: abs(metrics[k] - val[k]) for k in metrics}
+        if any(d > 1e-6 * max(1.0, abs(metrics[k]))
+               for k, d in metric_diff.items()):
+            fail(f"run_dtu: the CLI's metrics {metrics} differ from "
+                 f"Trainer.val's {val}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        sub = subprocess.run(
+            [sys.executable, "-m", "enerf_tpu_torch.run", "--type", "dataset",
+             *args[2:]], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        sub_s = time.perf_counter() - t0
+        if sub.returncode != 0 or f"batches: {RUN_DTU_FRAMES}" not in sub.stdout:
+            fail(f"run_dtu: python -m enerf_tpu_torch.run --type dataset: rc "
+                 f"{sub.returncode}\n{sub.stdout[-2000:]}\n{sub.stderr[-4000:]}")
+        breakdown = host_breakdown_ms(fixture, cfg)
+    finally:
+        os.chdir(cwd)
+    timed = res["frame_ms"][1:]
+    emit("run_dtu", scene=DTU_SCENE, H=H, W=W, frames=res["frames"],
+         fixture_seconds=write_s, fixture_parts_seconds=secs,
+         png_filters=list(DTU_FILTERS), native=native.available(),
+         cli_seconds=cli_s, launches=launches,
+         launches_per_frame={k: v / RUN_DTU_FRAMES
+                             for k, v in launches.items()},
+         loader_host_ms=res["loader_host_ms"],
+         median_loader_host_ms=statistics.median(res["loader_host_ms"]),
+         loader_wait_ms=res["loader_wait_ms"],
+         loader_host_parts_ms=breakdown,
+         frame_ms=res["frame_ms"], median_frame_ms=statistics.median(timed),
+         mean_frame_ms=statistics.mean(timed), fps=res["fps"],
+         upload_ms=res["upload_ms"], upload_bytes_per_frame=res["upload_bytes"],
+         view_slots=int(batch["view_mask"].shape[-1]),
+         views_valid=float(batch["view_mask"].sum()),
+         metrics=metrics, trainer_val_metrics={k: val[k] for k in metrics},
+         metric_abs_diff=metric_diff, kernel_vs_plain_max_abs_err=err,
+         e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL},
+         dataset_subprocess_seconds=sub_s, nvidia_smi=smi_line)
+    dev_batch = et.device_batch(batch, "cuda")
+    with torch.inference_mode():
+        profile_device(torch, "run_dtu_profile", lambda: model(dev_batch), 2,
+                       "frame")
+    return launches
 
 
 def phase_profile(torch, model, batch, frames: int = 2) -> None:
@@ -1488,8 +1739,7 @@ def phase_train(torch):
     state = create_train_state(cfg, model)
     step = make_train_step(cfg, (H, W))
     batch_np = make_synthetic_batch(cfg, H=H, W=W, split="train")
-    batch_np.pop("tar_img")
-    batch = et.to_device(batch_np, "cuda")
+    batch = et.device_batch(batch_np, "cuda")
     params0 = [p.detach().clone() for p in model.parameters()]
     timer = StageTimer(torch)   # at the step's phase_hook
     n = TRAIN_WARMUP + TRAIN_STEPS
@@ -1558,7 +1808,6 @@ def phase_train(torch):
     # the card vs the CPU: one small step from the same weights and batch
     sh, sw = TRAIN_SMALL_HW
     small = make_synthetic_batch(cfg, H=sh, W=sw, split="train", seed=3)
-    small.pop("tar_img")
     m_gpu = et.build_model(cfg, seed=1, train=True)
     m_cpu = copy.deepcopy(m_gpu).cpu()
     small_step = make_train_step(cfg, (sh, sw))
@@ -1607,6 +1856,7 @@ def main() -> None:
     paths["human"], human_calls = phase_human(torch)
     paths["composite"], composite_calls = phase_composite(torch)
     paths["val"], val_calls = phase_val(torch)
+    paths["run_dtu"] = phase_run_dtu(torch, smi_line)
     path_calls = {"human": human_calls, "composite": composite_calls,
                   "val": val_calls}
     k4 = phase_k4(torch, cfg)

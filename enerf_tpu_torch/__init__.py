@@ -17,18 +17,24 @@ a bg volume).
     step = make_train_step(cfg, (H, W))
     state, stats = step(state, batch)                   # one optimizer step
 
+From dataset files on disk (``python -m enerf_tpu_torch.run``)::
+
+    from enerf_tpu_torch.datasets.loader import make_data_loader
+    for batch in make_data_loader(cfg, "test"):         # numpy batches
+        out = enerf_tpu_torch.render(model, batch)
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on the CPU every CUDA kernel is replaced by its plain PyTorch version.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping
 
-import numpy as np
 import torch
 
 from enerf_tpu_torch.config import Config, ENeRFConfig
+from enerf_tpu_torch.datasets.loader import device_batch
 from enerf_tpu_torch.factory import make_network
 from enerf_tpu_torch.models.enerf import ENeRF
 
@@ -60,23 +66,14 @@ def build_model(cfg, device=None, seed: int = 0, train: bool = False
     return make_network(cfg, generator=gen).train(train).to(dev)
 
 
-def to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
-    """A batch dict of numpy arrays / tensors as float32 tensors on
-    ``device`` (non-array entries are dropped)."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(np.ascontiguousarray(v))
-        if isinstance(v, torch.Tensor):
-            out[k] = v.to(device=device, dtype=torch.float32).contiguous()
-    return out
-
-
 @torch.inference_mode()
 def render(model: ENeRF, batch: Mapping, stage_hook=None) -> Dict[str, torch.Tensor]:
-    """Render one batch with ``model`` on the model's device."""
+    """Render one batch with ``model`` on the model's device; only the
+    batch's device inputs are uploaded (``device_batch``: the host-only
+    ground truth ``tar_img``, ``tar_dpt``, ``tar_mask`` stays)."""
     dev = next(model.parameters()).device
-    return model(to_device(batch, dev), stage_hook=stage_hook)
+    return model(device_batch(batch, dev), stage_hook=stage_hook)
 
 
-__all__ = ["build_model", "render", "resolve_device", "to_device", "ENeRF"]
+__all__ = ["build_model", "render", "resolve_device", "device_batch",
+           "ENeRF"]

@@ -3,7 +3,9 @@
 Counterpart of ``enerf_tpu/config.py``, kept as the port's own copy so the
 port never imports the JAX package. Same YAML schema as the reference
 (``configs/enerf/*.yaml``): recursive ``parent_cfg`` merging and dotted
-CLI overrides ``key.subkey value``.
+CLI overrides ``key.subkey value``. The files are read by the port's own
+reader of the YAML subset they use (``parse_yaml``), so no YAML package is
+needed.
 
 The JAX package's TPU-only knobs (``fused_render``, ``fused_gather_blend``,
 ``fused_volume``, ``gather_bf16``, ``fused_fast_const``, ``use_pallas``,
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -140,8 +143,13 @@ class Config:
     save_tag: str = "default"
     gpus: Tuple[int, ...] = (0,)
     workspace: str = ""
-    # the network class, named by the JAX package's module path as the YAML
-    # files carry it; ``factory.make_network`` maps it to the port's class
+    # the datasets, named by the JAX package's module paths as the YAML
+    # files carry them; ``datasets.loader.make_dataset`` maps each to the
+    # port's module
+    train_dataset_module: str = "enerf_tpu.datasets.dtu"
+    test_dataset_module: str = "enerf_tpu.datasets.dtu"
+    # the network class, named the same way; ``factory.make_network`` maps
+    # it to the port's class
     network_module: str = "enerf_tpu.models.enerf"
     # the evaluator, named the same way; ``factory.make_evaluator`` maps it
     evaluator_module: str = "enerf_tpu.eval.evaluator"
@@ -207,12 +215,190 @@ def _deep_merge(base: Dict, new: Dict) -> Dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The YAML subset of ``configs/**/*.yaml``, read without PyYAML
+# ---------------------------------------------------------------------------
+#
+# Block mappings by indentation, flow lists ``[a, b]`` of scalars, plain,
+# quoted, numeric, boolean and null scalars and ``#`` comments; scalars
+# resolve as PyYAML's ``safe_load`` resolves them (YAML 1.1: ``5e-4`` stays
+# a string, ``1.`` is a float, ``yes`` / ``On`` are booleans, ``010`` is
+# octal). Anything else (sequences ``- x``, anchors, tags, multi-line
+# scalars, flow mappings, escapes, timestamps) raises ``YAMLSubsetError``
+# with the file and line.
+
+_YAML_BOOL = re.compile(
+    r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE|on|On|ON"
+    r"|off|Off|OFF)$")
+_YAML_FLOAT = re.compile(
+    r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?"
+    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+_YAML_INT = re.compile(
+    r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+    r"|[-+]?0x[0-9a-fA-F_]+)$")
+# resolved by PyYAML to types outside the subset: sexagesimal numbers,
+# timestamps, the merge key and the value key
+_YAML_OTHER = re.compile(
+    r"^(?:[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}(?:[Tt ].*)?|<<|=)$")
+_YAML_INDICATORS = tuple("[]{}#&*!|>%@`\"'")
+
+
+class YAMLSubsetError(ValueError):
+    """A config file uses YAML outside the subset the port reads."""
+
+
+def _yaml_fail(where: str, msg: str):
+    raise YAMLSubsetError(f"{where}: {msg} (outside the YAML subset of "
+                          "configs/**/*.yaml)")
+
+
+def _yaml_scalar(tok: str, where: str) -> Any:
+    """One scalar token (already stripped) as PyYAML's resolver types it."""
+    if tok[:1] == "'":
+        if len(tok) < 2 or tok[-1] != "'" or "'" in tok[1:-1].replace("''", ""):
+            _yaml_fail(where, f"bad single-quoted scalar {tok!r}")
+        return tok[1:-1].replace("''", "'")
+    if tok[:1] == '"':
+        body = tok[1:-1]
+        if len(tok) < 2 or tok[-1] != '"' or '"' in body or "\\" in body:
+            _yaml_fail(where, f"double-quoted scalar {tok!r} (no escapes)")
+        return body
+    if tok in ("", "~", "null", "Null", "NULL"):
+        return None
+    if (tok.startswith(_YAML_INDICATORS) or tok[:2] in ("- ", "? ", ": ")
+            or tok in ("-", "?", ":") or ": " in tok or tok.endswith(":")
+            or " #" in tok or _YAML_OTHER.match(tok)):
+        _yaml_fail(where, f"scalar {tok!r}")
+    if _YAML_BOOL.match(tok):
+        return tok.lower() in ("yes", "true", "on")
+    if _YAML_FLOAT.match(tok):
+        v = tok.replace("_", "").lower()
+        sign = -1.0 if v[0] == "-" else 1.0
+        v = v.lstrip("+-")
+        if v == ".inf":
+            return sign * float("inf")
+        return float("nan") if v == ".nan" else sign * float(v)
+    if _YAML_INT.match(tok):
+        v = tok.replace("_", "")
+        sign = -1 if v[0] == "-" else 1
+        v = v.lstrip("+-")
+        if v.startswith("0b"):
+            return sign * int(v[2:], 2)
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if v != "0" and v.startswith("0"):
+            return sign * int(v, 8)
+        return sign * int(v)
+    return tok
+
+
+def _yaml_value(text: str, where: str) -> Any:
+    """A mapping value: a flow list of scalars or one scalar."""
+    if not text.startswith("["):
+        return _yaml_scalar(text, where)
+    if not text.endswith("]"):
+        _yaml_fail(where, f"flow list {text!r}")
+    items, cur, quote = [], "", None
+    for ch in text[1:-1]:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == ",":
+            items.append(cur.strip())
+            cur = ""
+            continue
+        elif ch in "[]{}":
+            _yaml_fail(where, f"nested flow collection in {text!r}")
+        cur += ch
+    if cur.strip() or items:
+        items.append(cur.strip())
+    if items and items[-1] == "":        # a trailing comma, as YAML allows
+        items.pop()
+    if "" in items:
+        _yaml_fail(where, f"empty flow list entry in {text!r}")
+    return [_yaml_scalar(t, where) for t in items]
+
+
+def _yaml_strip_comment(line: str) -> str:
+    """``line`` without its ``#`` comment (a ``#`` at the start or after
+    whitespace, outside quotes), right-stripped."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _yaml_split_key(text: str, where: str) -> Tuple[Any, str]:
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == ":" and text[i + 1: i + 2] in ("", " "):
+            key = text[:i].strip()
+            if not key:
+                _yaml_fail(where, "empty key")
+            return _yaml_scalar(key, where), text[i + 1:].strip()
+    _yaml_fail(where, f"expected 'key: value', got {text!r}")
+
+
+def parse_yaml(text: str, name: str = "<string>") -> Dict:
+    """The block mapping of ``text`` (a config file's contents), equal to
+    ``yaml.safe_load(text) or {}`` on the subset above."""
+    lines = []
+    for no, raw in enumerate(text.splitlines(), 1):
+        body = _yaml_strip_comment(raw)
+        if not body.strip():
+            continue
+        stripped = body.lstrip(" ")
+        if stripped[:1] == "\t":
+            _yaml_fail(f"{name}:{no}", "tab in indentation")
+        if stripped in ("---", "...") or stripped.startswith(
+                ("--- ", "... ", "%")):
+            _yaml_fail(f"{name}:{no}", "document marker or directive")
+        lines.append((no, len(body) - len(stripped), stripped))
+    if not lines:
+        return {}
+
+    def block(i: int, indent: int) -> Tuple[Dict, int]:
+        out: Dict = {}
+        while i < len(lines):
+            no, ind, body = lines[i]
+            where = f"{name}:{no}"
+            if ind < indent:
+                break
+            if ind > indent:
+                _yaml_fail(where, "unexpected indentation (a multi-line "
+                           "scalar or a misaligned key)")
+            key, rest = _yaml_split_key(body, where)
+            i += 1
+            if rest:
+                out[key] = _yaml_value(rest, where)
+            elif i < len(lines) and lines[i][1] > indent:
+                out[key], i = block(i, lines[i][1])
+            else:
+                out[key] = None
+        return out, i
+
+    tree, i = block(0, lines[0][1])
+    if i < len(lines):
+        _yaml_fail(f"{name}:{lines[i][0]}", "indentation above the first key")
+    return tree
+
+
 def load_yaml_tree(path: str) -> Dict:
     """Load a YAML file, recursively merging ``parent_cfg`` chains."""
-    import yaml  # only the YAML path needs PyYAML
-
     with open(path) as f:
-        cur = yaml.safe_load(f) or {}
+        cur = parse_yaml(f.read(), path)
     if "parent_cfg" in cur:
         parent_path = cur["parent_cfg"]
         if not os.path.isabs(parent_path) and not os.path.exists(parent_path):
@@ -227,19 +413,17 @@ def load_yaml_tree(path: str) -> Dict:
 
 def _coerce(value: str) -> Any:
     """Parse a CLI override string: ``ast.literal_eval`` so ``False,True``
-    and ``48,8`` become tuples (yacs semantics), else YAML, else the raw
-    string."""
+    and ``48,8`` become tuples (yacs semantics), else the config files'
+    value rule (a YAML scalar or flow list), else the raw string."""
     import ast
 
     try:
         return ast.literal_eval(value)
     except (ValueError, SyntaxError):
         pass
-    import yaml
-
     try:
-        return yaml.safe_load(value)
-    except yaml.YAMLError:
+        return _yaml_value(value.strip(), "override")
+    except YAMLSubsetError:
         return value
 
 
@@ -325,10 +509,11 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
         enerf_tree = dict(tree.get("enerf", {}))
         enerf_tree["num_fg_layers"] = tree.pop("num_fg_layers")
         tree["enerf"] = enerf_tree
-    # the reference's module paths name the networks and evaluators as the
-    # JAX package's make_cfg maps them (enerf_tpu/config.py:446-449,
-    # :462-468)
-    for key in ("network_module", "evaluator_module"):
+    # the reference's module paths name the datasets, networks and
+    # evaluators as the JAX package's make_cfg maps them
+    # (enerf_tpu/config.py:446-468)
+    for key in ("train_dataset_module", "test_dataset_module",
+                "network_module", "evaluator_module"):
         name = tree.get(key)
         if isinstance(name, str) and name in _REFERENCE_MODULES:
             tree[key] = _REFERENCE_MODULES[name]
@@ -336,6 +521,15 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
 
 
 _REFERENCE_MODULES = {
+    "lib.datasets.dtu.enerf": "enerf_tpu.datasets.dtu",
+    "lib.datasets.nerf.enerf": "enerf_tpu.datasets.nerf_synthetic",
+    "lib.datasets.llff.enerf": "enerf_tpu.datasets.llff",
+    "lib.datasets.zjumocap.enerf": "enerf_tpu.datasets.zjumocap",
+    "lib.datasets.zjumocap.enerf_interactive":
+        "enerf_tpu.datasets.zjumocap_interactive",
+    "lib.datasets.enerf_outdoor.enerf": "enerf_tpu.datasets.enerf_outdoor",
+    "lib.datasets.enerf_outdoor.enerf_path":
+        "enerf_tpu.datasets.enerf_outdoor_path",
     "lib.networks.enerf.network": "enerf_tpu.models.enerf",
     "lib.networks.enerf.network_human": "enerf_tpu.models.enerf_human",
     "lib.networks.enerf.network_composite": "enerf_tpu.models.enerf_composite",
@@ -411,8 +605,8 @@ def asdict(cfg) -> Dict:
 
 __all__ = [
     "CascadeConfig", "ENeRFConfig", "TrainConfig", "SchedulerConfig",
-    "DatasetConfig", "Config", "make_cfg", "load_yaml_tree", "apply_opts",
-    "dtu_eval_config", "human_eval_config", "human_mask",
+    "DatasetConfig", "Config", "make_cfg", "load_yaml_tree", "parse_yaml",
+    "YAMLSubsetError", "apply_opts", "dtu_eval_config", "human_eval_config", "human_mask",
     "composite_eval_config", "HUMAN_MASK_FRAC", "HUMAN_WINDOW_HW", "replace",
     "asdict",
 ]

@@ -12,7 +12,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from enerf_tpu_torch import to_device
+from enerf_tpu_torch import device_batch
 from enerf_tpu_torch.config import Config
 from enerf_tpu_torch.train.loss import compute_loss
 from enerf_tpu_torch.train.state import TrainState
@@ -37,7 +37,7 @@ def make_train_step(cfg: Config, src_hw: Tuple[int, int],
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         hook = phase_hook or (lambda name: None)
         model = state.model
-        batch = to_device(batch, next(model.parameters()).device)
+        batch = device_batch(batch, next(model.parameters()).device)
         model.train()
         output = model(batch)
         loss, stats = compute_loss(output, batch, cfg.enerf, src_hw,

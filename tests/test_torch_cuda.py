@@ -470,3 +470,36 @@ def test_train_step_on_card(cuda):
     _, cpu_stats = step(create_train_state(cfg, cpu_model), batch)
     torch.testing.assert_close(stats["loss"].cpu(), cpu_stats["loss"],
                                rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_run_cli_on_card_matches_cpu(cuda, tmp_path):
+    """``python -m enerf_tpu_torch.run --type evaluate`` over
+    ``configs/enerf/synthetic_smoke.yaml`` (4 frames at 64x96, both levels
+    rendered) on the card: K1 2, K4 2, ``render`` 1 and ``render_l0`` 1
+    launches a frame, and the first frame's outputs and the metrics as the
+    same command gives on the CPU (the tolerances of
+    ``test_both_levels_frame_kernel_vs_plain_path``; PSNR to 0.01 dB)."""
+    from pathlib import Path
+
+    from enerf_tpu_torch.run import main
+
+    smoke = str(Path(__file__).resolve().parents[1]
+                / "configs" / "enerf" / "synthetic_smoke.yaml")
+    args = ["--type", "evaluate", "--cfg_file", smoke,
+            "workspace", str(tmp_path)]
+    counts = lambda: (kcv.launches, krender.launches["render"],  # noqa: E731
+                      krender.launches["render_l0"], kdr.launches)
+    before = counts()
+    card = main(args)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (8, 4, 4, 8)
+    assert card["timer"] == "cuda events" and card["frames"] == 4
+    cpu = main(["--device", "cpu", *args])
+    assert set(card["first_out"]) == set(cpu["first_out"])
+    for k, v in card["first_out"].items():
+        atol = 3e-3 if k.startswith(("depth", "std")) else 3e-4
+        torch.testing.assert_close(torch.from_numpy(v),
+                                   torch.from_numpy(cpu["first_out"][k]),
+                                   rtol=1e-3, atol=atol)
+    assert abs(card["metrics"]["psnr"] - cpu["metrics"]["psnr"]) < 1e-2
+    assert abs(card["metrics"]["ssim"] - cpu["metrics"]["ssim"]) < 1e-3

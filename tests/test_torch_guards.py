@@ -1,4 +1,5 @@
-"""Guards of the port's contract: it never imports JAX or the JAX package,
+"""Guards of the port's contract: it never imports JAX or the JAX package
+(nor PyYAML, OpenCV, imageio or tqdm, which it does without),
 its entry points never drop to the CPU on their own, its kernel wrappers
 never fall back, and its own copies of the config and synthetic-data
 modules equal the JAX package's."""
@@ -23,6 +24,13 @@ from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "enerf_tpu")
+# packages the port does without: nothing of it imports them, but imageio
+# behind the PNG reader's JPEG branch (``utils/image_io.py:_read_jpeg``)
+UNNEEDED = ("yaml", "cv2", "imageio", "tqdm")
+# not loaded at all by the package's modules (torch.hub loads tqdm itself
+# where it is installed)
+LOADED_FORBIDDEN = ("yaml", "cv2", "imageio")
+LAZY_ALLOWED = {("enerf_tpu_torch/utils/image_io.py", "imageio.v2")}
 
 
 def test_no_jax_import_in_subprocess():
@@ -63,8 +71,15 @@ def test_no_jax_import_in_subprocess():
         "               sys.modules)\n"
         "from enerf_tpu_torch.factory import make_evaluator\n"
         "make_evaluator(cfg, device='cpu', lpips_path='absent.npz')\n"
+        "import enerf_tpu_torch.native, enerf_tpu_torch.utils.image_io\n"
+        "import enerf_tpu_torch.datasets.loader, enerf_tpu_torch.run\n"
+        "import enerf_tpu_torch.datasets.dtu\n"
+        "import enerf_tpu_torch.datasets.nerf_synthetic\n"
+        "import enerf_tpu_torch.datasets.llff\n"
+        "from enerf_tpu_torch.config import make_cfg\n"
+        "make_cfg('configs/enerf/dtu_pretrain.yaml')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        f"             {FORBIDDEN!r})\n"
+        f"             {FORBIDDEN + LOADED_FORBIDDEN!r})\n"
         "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -73,19 +88,30 @@ def test_no_jax_import_in_subprocess():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+def _imports(path: Path):
+    """The module named by every import statement, lazy ones included."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
 def test_no_jax_import_in_sources():
-    """No module of the package names JAX, flax or enerf_tpu in an
-    import statement, lazy imports included."""
-    for path in (REPO / "enerf_tpu_torch").rglob("*.py"):
-        for node in ast.walk(ast.parse(path.read_text())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                assert name.split(".")[0] not in FORBIDDEN, (path, name)
+    """No module of the package, and not ``chip_smoke.py`` (its ``run_dtu``
+    phase included), names JAX, flax or enerf_tpu in an import statement,
+    lazy imports included; none imports PyYAML, OpenCV, imageio or tqdm,
+    but imageio in the PNG reader's JPEG branch."""
+    paths = sorted((REPO / "enerf_tpu_torch").rglob("*.py"))
+    paths.append(REPO / "chip_smoke.py")
+    for path in paths:
+        rel = str(path.relative_to(REPO))
+        for name in _imports(path):
+            root = name.split(".")[0]
+            assert root not in FORBIDDEN, (rel, name)
+            if root in UNNEEDED:
+                assert (rel, name) in LAZY_ALLOWED, (rel, name)
+    assert "def phase_run_dtu" in (REPO / "chip_smoke.py").read_text()
 
 
 def test_build_model_without_device_needs_cuda(monkeypatch):

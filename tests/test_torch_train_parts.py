@@ -305,7 +305,7 @@ def test_train_mode_routes_around_the_eval_kernels(monkeypatch):
     cfg = tiny_cfg()
     model = et.build_model(cfg, device="cpu", train=True)
     assert model.training
-    out = model(et.to_device(train_batch(cfg), "cpu"))
+    out = model(et.device_batch(train_batch(cfg), "cpu"))
     assert calls == ["depth", "depth"]
     out["rgb_level1"].sum().backward()
     assert model.feature_net.conv0[0].conv.weight.grad is not None
