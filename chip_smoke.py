@@ -68,6 +68,22 @@ Phases, each printing one JSON line:
            parts, frame ms (CUDA events, first frame excluded), bytes
            uploaded a frame, the card's name and power limit; then
            ``run_dtu_profile`` (device busy, idle share over two frames)
+  jpeg     the native host library is the build of this checkout; its
+           JPEG decoder holds a committed Pillow file to its pixel
+           checksum bit for bit; encode + decode of a 1024x1024 and a
+           1080x1920 image (PSNR, host ms)
+  run_zjumocap  a ZJU-MoCap-layout CoreView_313 written under
+           build/video_fixture (6 cameras x 2 frames of 1024x1024 JPEGs,
+           PNG masks, annots.npy with lens distortion, new_vertices) and
+           evaluated by ``enerf_tpu_torch.run``'s ``main`` on
+           zjumocap_eval.yaml (ENeRFHuman at 512x512, window (448, 288)):
+           launches a frame K1 2, K4 2, render 1; the first frame vs the
+           plain path, the metrics vs Trainer.val; the loader's host ms
+           and its parts (decode, undistort, resize, rays)
+  run_outdoor  the same for an ENeRF-Outdoor-layout actor1 (4 cameras x 2
+           frames of 1080x1920 JPEGs, bkgd plates, intri/extri.yml,
+           vhull, background.ply) on actor1.yaml (ENeRFComposite at
+           768x1024): K1 4, K4 4 a frame
   k4       the depth-regression kernel vs its plain version, forward and
            gradient, at the train shapes of both cascade levels and the
            eval level-0 shape, then 5 planes over a ragged pixel count, a
@@ -86,8 +102,15 @@ Phases, each printing one JSON line:
            with seeded random VGG16 weights (the perceptual term); a
            128x160 step on the card vs the same step on the CPU
   train_profile  torch.profiler over two train steps
+  train_cli ``python -m enerf_tpu_torch.train`` in subprocesses: 2 epochs
+           of 3 steps of zjumocap_train.yaml on the ZJU-MoCap scene (a
+           checkpoint and a validation after each), a resume that starts
+           at epoch 2, then 2 steps of actor1.yaml on the outdoor scene:
+           step ms, loss, peak memory, K4 launched in training and the
+           validation's kernels
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
-path: frames, human, composite, val, run_dtu, train; its calls of a human, a
+path: frames, human, composite, val, run_dtu, run_zjumocap, run_outdoor,
+train, train_cli; its calls of a human, a
 composite and a val frame in ``per_frame_by_path``), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Float32 throughout, TF32 off. A bound
@@ -111,6 +134,12 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# a 61x45 4:2:0 JPEG written by Pillow (quality 85) and the sha256 of its
+# pixels as imageio (libjpeg-turbo) decodes them: the native decoder is
+# held to it bit for bit on the card, where no image library is installed
+JPEG_FIXTURE = "enerf_tpu_torch/native/testdata/odd_420.jpg"
+JPEG_FIXTURE_SHA256 = ("74992ce55c3b2963df7a1e2a2aa5333e"
+                       "6a5369a7d30732dc899c8dc223d7842b")
 H, W = 512, 640
 N_FRAMES = 3          # the main-path run whose launches are counted
 TIMED_FRAMES = 10
@@ -1828,6 +1857,616 @@ def phase_train(torch):
          worst_grad_param=worst[0], cosine_limit=TRAIN_GRAD_COS)
     return launches, state, step, batch
 
+# ---------------------------------------------------------------------------
+# the dynamic-scene data paths: JPEG scenes from files on disk
+
+
+ZJU_HW = 1024                 # ZJU-MoCap's 1024x1024 frames
+ZJU_CAMS, ZJU_FRAMES = 6, 2
+OUT_HW = (1080, 1920)         # ENeRF-Outdoor's 1080x1920 frames
+OUT_CAMS, OUT_FRAMES = 4, 2
+# the test splits of both configs cut to the fixtures' frames
+VIDEO_FRAMES_OPT = ["test_dataset.frames", "[0, -1, 1]"]
+
+
+def _look_at(eye, target):
+    """A world-to-camera extrinsic (4x4) at ``eye`` looking at
+    ``target``, z up in the world, y down in the image."""
+    fwd = np.asarray(target, np.float64) - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd])
+    ext = np.eye(4)
+    ext[:3, :3], ext[:3, 3] = R, -R @ eye
+    return ext
+
+
+def _trace_ellipsoid(ext, ixt, hw, center, radii, phases, bg_phase):
+    """(hit mask, rgb in [0, 1]) of an (h, w) camera looking at a textured
+    ellipsoid over a gradient background."""
+    h, w = hw
+    ys, xs = np.mgrid[0:h, 0:w]
+    R, t = ext[:3, :3], ext[:3, 3]
+    o = (-R.T @ t - center) / radii
+    d = (np.stack([xs, ys, np.ones_like(xs)], -1).astype(np.float64)
+         @ np.linalg.inv(ixt).T @ R) / radii
+    a = np.einsum("...c,...c->...", d, d)
+    b = d @ o
+    disc = b * b - a * (o @ o - 1.0)
+    z = (-b - np.sqrt(np.maximum(disc, 0.0))) / a
+    hit = (disc > 0) & (z > 0)
+    p = o + d * z[..., None]
+    fg = 0.5 + 0.4 * np.sin(p @ phases[:3].T * 6.0 + phases[3])
+    return hit, np.where(hit[..., None], fg, _background(hw, bg_phase))
+
+
+def _background(hw, phase):
+    """A smooth (h, w, 3) gradient in [0.1, 0.6]."""
+    ys, xs = np.mgrid[0:hw[0], 0:hw[1]]
+    v = 0.35 + 0.25 * np.sin(xs / 97.0 + ys / 61.0 + phase)
+    return v[..., None] * np.array([1.0, 0.9, 0.8])
+
+
+def write_zjumocap_scene(root: Path, seed: int = 0) -> dict:
+    """A ZJU-MoCap-layout ``CoreView_313`` under ``root/zju_mocap`` at
+    ZJU-MoCap's sizes: ``ZJU_CAMS`` cameras on a ring 3 m from a standing
+    subject (a textured ellipsoid), ``ZJU_FRAMES`` frames of 1024x1024
+    JPEGs written by the port's encoder, PNG masks, ``annots.npy`` with
+    non-zero lens distortion, and ``new_vertices`` on the subject's
+    surface. Returns the seconds each part took."""
+    import shutil
+
+    from enerf_tpu_torch.utils.image_io import imwrite
+
+    rng = np.random.RandomState(seed)
+    base = root / "zju_mocap" / "CoreView_313"
+    shutil.rmtree(base, ignore_errors=True)
+    (base / "new_vertices").mkdir(parents=True)
+    center, radii = np.array([0.0, 0.0, 0.9]), np.array([0.22, 0.16, 0.8])
+    f = 1100.0 * ZJU_HW / 1024
+    K = np.array([[f, 0, ZJU_HW / 2], [0, f, ZJU_HW / 2], [0, 0, 1]])
+    cams = {"K": [], "R": [], "T": [], "D": []}
+    exts = []
+    for c in range(ZJU_CAMS):
+        ang = 2 * np.pi * c / ZJU_CAMS
+        ext = _look_at(np.array([3 * np.sin(ang), -3 * np.cos(ang), 1.0]),
+                       center)
+        exts.append(ext)
+        cams["K"].append(K.copy())
+        cams["R"].append(ext[:3, :3])
+        cams["T"].append(ext[:3, 3:] * 1000.0)
+        cams["D"].append(np.array([[-0.25 + 0.02 * c], [0.1], [5e-4],
+                                   [-4e-4], [-0.02]]))
+    secs = {"images": 0.0, "masks": 0.0}
+    ims = []
+    for f in range(ZJU_FRAMES):
+        phases = rng.uniform(-1.0, 1.0, (4, 3))
+        rel = []
+        for c, ext in enumerate(exts):
+            t0 = time.perf_counter()
+            hit, rgb = _trace_ellipsoid(ext, K, (ZJU_HW, ZJU_HW), center,
+                                        radii, phases, 0.3 * f)
+            name = f"Camera_B{c + 1}/{f:06d}.jpg"
+            (base / name).parent.mkdir(parents=True, exist_ok=True)
+            imwrite(str(base / name), (rgb * 255).astype(np.uint8))
+            t1 = time.perf_counter()
+            (base / "mask" / name).parent.mkdir(parents=True, exist_ok=True)
+            imwrite(str(base / "mask" / (name[:-4] + ".png")),
+                    hit.astype(np.uint8) * 255)
+            secs["images"] += t1 - t0
+            secs["masks"] += time.perf_counter() - t1
+            rel.append(name)
+        ims.append({"ims": rel})
+        u = rng.normal(size=(600, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        np.save(base / "new_vertices" / f"{f + 1}.npy", center + u * radii)
+    np.save(base / "annots.npy", {"cams": cams, "ims": ims})
+    return secs
+
+
+def _write_ply_points(path: Path, pts: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {len(pts)}\n".encode())
+        f.write(b"property float x\nproperty float y\nproperty float z\n"
+                b"end_header\n")
+        f.write(pts.astype("<f4").tobytes())
+
+
+def write_outdoor_scene(root: Path, seed: int = 0) -> dict:
+    """An ENeRF-Outdoor-layout ``actor1`` under ``root/enerf_outdoor`` at
+    its sizes: ``OUT_CAMS`` cameras on an arc 5 m from an actor (a textured
+    ellipsoid), ``OUT_FRAMES`` frames of 1080x1920 JPEGs and one ``bkgd/``
+    plate a camera (the port's encoder), ``intri.yml`` / ``extri.yml`` in
+    OpenCV's format (``utils/camera_io.write_storage``) with non-zero
+    distortion, ``vhull/`` bounds and a ``background.ply`` point cloud.
+    Returns the seconds each part took."""
+    import shutil
+
+    from enerf_tpu_torch.utils.camera_io import write_storage
+    from enerf_tpu_torch.utils.image_io import imwrite
+
+    rng = np.random.RandomState(seed)
+    base = root / "enerf_outdoor" / "actor1"
+    shutil.rmtree(base, ignore_errors=True)
+    (base / "vhull").mkdir(parents=True)
+    (base / "bkgd").mkdir()
+    h, w = OUT_HW
+    center, radii = np.array([0.0, 0.0, 0.9]), np.array([0.25, 0.2, 0.85])
+    K = np.array([[1500.0, 0, w / 2], [0, 1500.0, h / 2 + 20], [0, 0, 1]])
+    intri = {"names": [f"{c:02d}" for c in range(OUT_CAMS)]}
+    extri = {}
+    exts = []
+    from enerf_tpu_torch.utils.cv import rodrigues
+
+    for c in range(OUT_CAMS):
+        ang = -0.5 + c / (OUT_CAMS - 1)
+        ext = _look_at(np.array([5 * np.sin(ang), -5 * np.cos(ang), 1.2]),
+                       center)
+        exts.append(ext)
+        name = f"{c:02d}"
+        intri[f"K_{name}"] = K
+        intri[f"dist_{name}"] = np.array([[-0.08 + 0.01 * c], [0.02],
+                                          [1e-4], [-2e-4], [0.0]])
+        # the rotation vector of R (its axis times its angle)
+        R = ext[:3, :3]
+        angle = np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))
+        axis = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                         R[1, 0] - R[0, 1]]) / (2 * np.sin(angle))
+        rvec = (axis * angle).reshape(3, 1)
+        assert np.allclose(rodrigues(rvec), R, atol=1e-9)
+        extri[f"R_{name}"] = rvec
+        extri[f"T_{name}"] = ext[:3, 3:]
+        (base / "images" / name).mkdir(parents=True)
+    write_storage(str(base / "intri.yml"), intri)
+    write_storage(str(base / "extri.yml"), extri)
+    secs = {"images": 0.0, "plates": 0.0}
+    for c, ext in enumerate(exts):
+        t0 = time.perf_counter()
+        plate = _background(OUT_HW, 0.1 * c)
+        imwrite(str(base / "bkgd" / f"{c:02d}.jpg"),
+                (plate * 255).astype(np.uint8))
+        secs["plates"] += time.perf_counter() - t0
+    for f in range(OUT_FRAMES):
+        phases = rng.uniform(-1.0, 1.0, (4, 3))
+        for c, ext in enumerate(exts):
+            t0 = time.perf_counter()
+            _, rgb = _trace_ellipsoid(ext, K, OUT_HW, center, radii, phases,
+                                      0.1 * c)
+            imwrite(str(base / "images" / f"{c:02d}" / f"{f:06d}.jpg"),
+                    (rgb * 255).astype(np.uint8))
+            secs["images"] += time.perf_counter() - t0
+        np.save(base / "vhull" / f"{f:06d}.npy",
+                np.stack([center - radii - 0.05, center + radii + 0.05]))
+    # the background: points on a ground plane and a far wall
+    g = rng.uniform(-8, 8, (4000, 2))
+    wall = np.stack([rng.uniform(-12, 12, 4000), np.full(4000, 10.0),
+                     rng.uniform(0, 6, 4000)], -1)
+    _write_ply_points(base / "background.ply", np.concatenate(
+        [np.stack([g[:, 0], g[:, 1] + 4, np.zeros(4000)], -1), wall]))
+    return secs
+
+
+def video_host_parts_ms(cfg, K, D, jpeg_path: str, mask_path) -> dict:
+    """The loader's host work on one image of a video dataset (camera
+    ``K``, ``D``), each part timed alone on the fixture (median of 3): the
+    JPEG decode, its u8 -> float normalize, the undistort of the image
+    (and of the mask), the ratio resize (area, and nearest for the mask),
+    the rays of both levels of the target."""
+    from enerf_tpu_torch import native
+    from enerf_tpu_torch.datasets.ray_utils import build_rays_host
+    from enerf_tpu_torch.utils.cv import dilate, resize_by, undistort
+    from enerf_tpu_torch.utils.image_io import imread
+
+    K = np.asarray(K, np.float32)
+    D = np.asarray(D, np.float32).reshape(-1)
+    ratio = cfg.test_dataset.input_ratio
+    u8 = imread(jpeg_path)
+    img = native.u8_to_unit(u8)
+    und = undistort(img, K, D)
+    small = resize_by(und, ratio)
+    cas = cfg.enerf.cas_config
+    ixt = K.copy()
+    ixt[:2] *= ratio
+    ones = np.ones(small.shape[:2], np.uint8)
+
+    def median_ms(fn, n=3):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    parts = {"jpeg_decode": median_ms(lambda: imread(jpeg_path)),
+             "u8_to_unit": median_ms(lambda: native.u8_to_unit(u8)),
+             "undistort": median_ms(lambda: undistort(img, K, D)),
+             "resize_area": median_ms(lambda: resize_by(und, ratio)),
+             "rays_both_levels": median_ms(lambda: [
+                 build_rays_host(small, np.eye(4, dtype=np.float32), ixt,
+                                 ones, cas.render_scale[i])
+                 for i in range(cas.num)])}
+    if mask_path is not None:
+        mask = (imread(mask_path) != 0).astype(np.uint8)
+        parts["mask_png_decode"] = median_ms(lambda: imread(mask_path))
+        parts["mask_dilate"] = median_ms(lambda: dilate(mask, 5))
+        parts["mask_undistort"] = median_ms(lambda: undistort(mask, K, D))
+        parts["mask_resize_nearest"] = median_ms(
+            lambda: resize_by(mask, ratio, nearest=True))
+    return {"image_hw": list(u8.shape[:2]), **parts}
+
+
+def phase_jpeg(torch, smi_line: str) -> None:
+    """The native library is the one built from this checkout's sources,
+    its JPEG decoder holds the committed Pillow fixture to its checksum bit
+    for bit, and the encoder and decoder round-trip a 1024x1024 and a
+    1080x1920 image (PSNR against the source, host ms of each)."""
+    import hashlib
+
+    from enerf_tpu_torch import native
+    from enerf_tpu_torch.utils.image_io import decode_jpeg, encode_jpeg, imread
+
+    if not native.available() or not native._so_path().is_file():
+        fail("jpeg: the native host library did not build or load (g++): "
+             "the port reads no JPEG without it")
+    if Path(native._lib._name).resolve() != native._so_path().resolve():
+        fail(f"jpeg: loaded {native._lib._name}, not the build of this "
+             f"checkout's sources {native._so_path()}")
+    pix = imread(str(ROOT / JPEG_FIXTURE))
+    digest = hashlib.sha256(pix.tobytes()).hexdigest()
+    if pix.shape != (45, 61, 3) or digest != JPEG_FIXTURE_SHA256:
+        fail(f"jpeg: {JPEG_FIXTURE} decoded to {pix.shape} sha256 {digest}, "
+             f"expected (45, 61, 3) {JPEG_FIXTURE_SHA256}")
+    cases = []
+    for hw in ((ZJU_HW, ZJU_HW), OUT_HW):
+        _, rgb = _trace_ellipsoid(_look_at(np.array([0.0, -3.0, 1.0]),
+                                           [0.0, 0.0, 0.9]),
+                                  np.array([[1100.0, 0, hw[1] / 2],
+                                            [0, 1100.0, hw[0] / 2],
+                                            [0, 0, 1]]), hw,
+                                  np.array([0.0, 0.0, 0.9]),
+                                  np.array([0.22, 0.16, 0.8]),
+                                  np.full((4, 3), 0.5), 0.0)
+        src = (rgb * 255).astype(np.uint8)
+        enc_ms, dec_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            data = encode_jpeg(src, 75)
+            t1 = time.perf_counter()
+            out = decode_jpeg(data)
+            enc_ms.append(1e3 * (t1 - t0))
+            dec_ms.append(1e3 * (time.perf_counter() - t1))
+        mse = float(np.mean((out.astype(np.float64) - src) ** 2))
+        psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+        if out.shape != src.shape or psnr < 30.0:
+            fail(f"jpeg: {hw} round trip {out.shape}, PSNR {psnr:.2f} dB")
+        cases.append({"hw": list(hw), "bytes": len(data), "psnr_db": psnr,
+                      "encode_ms": statistics.median(enc_ms),
+                      "decode_ms": statistics.median(dec_ms)})
+    emit("jpeg", native_library=str(native._so_path().name),
+         fixture=JPEG_FIXTURE, fixture_sha256=digest, fixture_bit_exact=True,
+         quality=75, cases=cases, nvidia_smi=smi_line)
+
+
+class RecordingLoader:
+    """A data loader that appends each batch it yields to ``into``."""
+
+    def __init__(self, loader, into: list):
+        self.loader, self.into = loader, into
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.into.append(batch)
+            yield batch
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+
+def run_cli_eval(torch, phase: str, cfg_file: str, opts: list,
+                 per_frame: dict, smi_line: str, extra: dict) -> tuple:
+    """``enerf_tpu_torch.run``'s ``main`` (``--type evaluate``) on
+    ``cfg_file`` with ``opts``, in this process, the launch counts reset
+    just before and read just after (``per_frame`` times the frames); the
+    first frame vs the plain path; the metrics vs ``Trainer.val`` +
+    ``make_evaluator`` over the same batches (kept as the CLI's loader
+    yields them). Emits the phase's line (with ``extra``) and returns
+    (launches, the run's result)."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch import run
+    from enerf_tpu_torch.config import make_cfg
+    from enerf_tpu_torch.datasets.loader import make_data_loader
+    from enerf_tpu_torch.factory import make_evaluator
+    from enerf_tpu_torch.train import Trainer, create_train_state
+
+    args = ["--type", "evaluate", "--cfg_file", cfg_file, *opts]
+    # the CLI's batches, kept for Trainer.val (one pass of the slow loader)
+    batches = []
+    run.make_data_loader = lambda *a, **kw: RecordingLoader(
+        make_data_loader(*a, **kw), batches)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = run.main(args)
+    finally:
+        run.make_data_loader = make_data_loader
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    n = res["frames"]
+    expect = {k: v * n for k, v in per_frame.items()}
+    if n < 2 or launches != expect:
+        fail(f"{phase}: {n} frames, kernel launches on the main path "
+             f"{launches}, expected {expect}")
+    cfg = make_cfg(cfg_file, opts)
+    model, batch = res["model"], res["first_batch"]
+    with plain_path():
+        ref = et.render(model, batch)
+    err = {}
+    for k, v in res["first_out"].items():
+        if not np.isfinite(v).all():
+            fail(f"{phase}: non-finite {k}")
+        if k in E2E_ATOL:
+            err[k] = max_err(torch, torch.from_numpy(v).cuda(), ref[k],
+                             E2E_RTOL, E2E_ATOL[k],
+                             f"{phase} {k} kernel vs plain path")
+    if not err:
+        fail(f"{phase}: no output held against the plain path "
+             f"({sorted(res['first_out'])})")
+    if len(batches) != n:
+        fail(f"{phase}: recorded {len(batches)} of the CLI's {n} batches")
+    val = Trainer(cfg, train_step=None).val(
+        0, create_train_state(cfg, run.load_eval_model(cfg, "cuda")),
+        batches, evaluator=make_evaluator(cfg))
+    metrics = res["metrics"]
+    if not ({"psnr", "ssim"} <= set(metrics) and all(
+            np.isfinite(v) for v in metrics.values())):
+        fail(f"{phase}: metrics {metrics}")
+    metric_diff = {k: abs(metrics[k] - val[k]) for k in metrics}
+    if any(d > 1e-6 * max(1.0, abs(metrics[k]))
+           for k, d in metric_diff.items()):
+        fail(f"{phase}: the CLI's metrics {metrics} differ from "
+             f"Trainer.val's {val}")
+    timed = res["frame_ms"][1:]
+    emit(phase, cfg_file=cfg_file, opts=opts, frames=n,
+         frame_hw=list(batch["src_inps"].shape[2:4]), cli_seconds=cli_s,
+         launches=launches,
+         launches_per_frame={k: v / n for k, v in launches.items()},
+         loader_host_ms=res["loader_host_ms"],
+         median_loader_host_ms=statistics.median(res["loader_host_ms"]),
+         loader_wait_ms=res["loader_wait_ms"],
+         frame_ms=res["frame_ms"], median_frame_ms=statistics.median(timed),
+         fps=res["fps"], upload_ms=res["upload_ms"],
+         upload_bytes_per_frame=res["upload_bytes"], metrics=metrics,
+         trainer_val_metrics={k: val[k] for k in metrics},
+         metric_abs_diff=metric_diff, kernel_vs_plain_max_abs_err=err,
+         e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL}, nvidia_smi=smi_line,
+         **extra)
+    return launches, res
+
+
+def phase_run_zjumocap(torch, smi_line: str) -> dict:
+    """ZJU-MoCap from files on disk: ``write_zjumocap_scene`` evaluated by
+    ``python -m enerf_tpu_torch.run``'s ``main`` on
+    configs/enerf/zjumocap_eval.yaml (``ENeRFHuman`` at 512x512 from the
+    1024x1024 JPEGs, window (448, 288), planes (32, 8), level 1 rendered):
+    a frame launches K1 (crop mode) 2, K4 2, ``render`` 1."""
+    from enerf_tpu_torch.config import make_cfg
+
+    fixture = ROOT / "build" / "video_fixture"
+    t0 = time.perf_counter()
+    secs = write_zjumocap_scene(fixture)
+    write_s = time.perf_counter() - t0
+    cfg_file = "configs/enerf/zjumocap_eval.yaml"
+    # one rendered view (camera 2) of both frames
+    opts = ["workspace", str(fixture), *VIDEO_FRAMES_OPT,
+            "test_dataset.render_views", "[1, 2, 1]"]
+    cfg = make_cfg(cfg_file, opts)
+    base = fixture / "zju_mocap" / "CoreView_313"
+    cams = np.load(base / "annots.npy", allow_pickle=True).item()["cams"]
+    parts = video_host_parts_ms(cfg, cams["K"][0], cams["D"][0],
+                                str(base / "Camera_B1/000000.jpg"),
+                                str(base / "mask/Camera_B1/000000.png"))
+    launches, res = run_cli_eval(
+        torch, "run_zjumocap", cfg_file, opts, HUMAN_PER_FRAME, smi_line,
+        {"fixture_seconds": write_s, "fixture_parts_seconds": secs,
+         "cameras": ZJU_CAMS, "scene_frames": ZJU_FRAMES,
+         "jpeg_hw": [ZJU_HW, ZJU_HW], "loader_host_parts_ms": parts,
+         "mask_window_hw": list(cfg.enerf.mask_window_hw)})
+    batch = res["first_batch"]
+    if not 0 < float(batch["mask_at_box"].sum()) < batch["mask_at_box"].size:
+        fail("run_zjumocap: the subject's bbox mask is empty or the frame")
+    return launches
+
+
+def phase_run_outdoor(torch, smi_line: str) -> dict:
+    """ENeRF-Outdoor from files on disk: ``write_outdoor_scene`` evaluated
+    by ``enerf_tpu_torch.run``'s ``main`` on
+    configs/enerf/enerf_outdoor/actor1.yaml (``ENeRFComposite`` at
+    768x1024 from the 1080x1920 JPEGs: ratio 0.75, then the crop; 1 fg
+    layer, planes (32, 8)): a frame launches K1 4 (full frame and fg
+    crops), K4 4, and renders on the plain raw head."""
+    from enerf_tpu_torch.config import make_cfg
+    from enerf_tpu_torch.utils.camera_io import read_camera
+
+    fixture = ROOT / "build" / "video_fixture"
+    t0 = time.perf_counter()
+    secs = write_outdoor_scene(fixture)
+    write_s = time.perf_counter() - t0
+    cfg_file = "configs/enerf/enerf_outdoor/actor1.yaml"
+    opts = ["workspace", str(fixture), *VIDEO_FRAMES_OPT]
+    cfg = make_cfg(cfg_file, opts)
+    base = fixture / "enerf_outdoor" / "actor1"
+    cam = read_camera(str(base / "intri.yml"), str(base / "extri.yml"))["00"]
+    parts = video_host_parts_ms(cfg, cam["K"], cam["dist"],
+                                str(base / "images/00/000000.jpg"), None)
+    launches, res = run_cli_eval(
+        torch, "run_outdoor", cfg_file, opts, COMPOSITE_PER_FRAME, smi_line,
+        {"fixture_seconds": write_s, "fixture_parts_seconds": secs,
+         "cameras": OUT_CAMS, "scene_frames": OUT_FRAMES,
+         "jpeg_hw": list(OUT_HW), "loader_host_parts_ms": parts,
+         "fg_bbox_hw": list(cfg.enerf.fg_bbox_hw)})
+    bbox = res["first_batch"]["bbox"]
+    emit("run_outdoor_bbox", bbox=np.asarray(bbox).tolist(),
+         near_far=np.asarray(res["first_batch"]["near_far"]).tolist())
+    return launches
+
+
+# the train CLI in a subprocess: ``python -m enerf_tpu_torch.train`` run by
+# runpy, the train step timed by CUDA events (a synchronize after each) and
+# the kernel launches counted apart in the train epochs and in Trainer.val;
+# a "TRAIN_CLI {json}" line at the end
+TRAIN_RUNNER = r"""
+import json, runpy, sys, time
+import torch
+import enerf_tpu_torch.train as T
+from enerf_tpu_torch.train.trainer import Trainer
+from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+from enerf_tpu_torch.ops.kernels import render as krender
+
+rec = {"step_ms": [], "loss": [], "train_launches": {}, "val_launches": {}}
+def counts():
+    return {"cost_volume": kcv.launches, **krender.launches,
+            "depth_regression": kdr.launches}
+def add(into, before):
+    for k, v in counts().items():
+        into[k] = into.get(k, 0) + v - before[k]
+make = T.make_train_step
+def timed_make(*a, **kw):
+    step = make(*a, **kw)
+    def timed(state, batch, phase_hook=None):
+        a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a_.record()
+        out = step(state, batch, phase_hook)
+        b_.record(); b_.synchronize()
+        rec["step_ms"].append(a_.elapsed_time(b_))
+        rec["loss"].append(float(out[1]["loss"]))
+        return out
+    return timed
+T.make_train_step = timed_make
+for name, key in (("train_epoch", "train_launches"), ("val", "val_launches")):
+    fn = getattr(Trainer, name)
+    def wrapped(self, *a, _fn=fn, _key=key, **kw):
+        before = counts()
+        out = _fn(self, *a, **kw)
+        add(rec[_key], before)
+        return out
+    setattr(Trainer, name, wrapped)
+sys.argv = ["python -m enerf_tpu_torch.train"] + sys.argv[1:]
+torch.cuda.reset_peak_memory_stats()
+runpy.run_module("enerf_tpu_torch.train", run_name="__main__", alter_sys=True)
+rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+print("TRAIN_CLI " + json.dumps(rec), flush=True)
+"""
+
+
+def run_train_cli(args: list, timeout: int = 600) -> tuple:
+    """``TRAIN_RUNNER`` with ``args`` in a subprocess: (its record, its
+    stdout); fails on a non-zero exit."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-c", TRAIN_RUNNER, *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    secs = time.perf_counter() - t0
+    line = next((ln for ln in sub.stdout.splitlines()
+                 if ln.startswith("TRAIN_CLI ")), None)
+    if sub.returncode != 0 or line is None:
+        fail(f"train_cli: python -m enerf_tpu_torch.train {' '.join(args)}: "
+             f"rc {sub.returncode}\n{sub.stdout[-3000:]}\n{sub.stderr[-5000:]}")
+    rec = json.loads(line[len("TRAIN_CLI "):])
+    rec["seconds"] = secs
+    if not rec["loss"] or not all(np.isfinite(rec["loss"])):
+        fail(f"train_cli: losses {rec['loss']}")
+    return rec, sub.stdout
+
+
+def phase_train_cli(smi_line: str) -> dict:
+    """``python -m enerf_tpu_torch.train`` in subprocesses on the fixtures
+    of ``run_zjumocap`` and ``run_outdoor``: zjumocap_train.yaml for 2
+    epochs of 3 steps with a checkpoint and a validation after each, then
+    a resume that starts at epoch 2 and runs it (no validation); then 2
+    steps of actor1.yaml. Each step's ms (CUDA events), the loss, the peak memory;
+    the checkpoints and ``config/`` files; K4 launched in training (K1 and
+    K2 take their differentiable plain versions there) and the
+    validation's kernels launched."""
+    from enerf_tpu_torch.config import make_cfg
+
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()     # the subprocesses take the card's memory
+    fixture = ROOT / "build" / "video_fixture"
+    # the fixture's 6 cameras all train (the config takes every other of
+    # ZJU-MoCap's 23, too few here for 4 source views); the validation
+    # renders one view of both frames
+    zju = ["--cfg_file", "configs/enerf/zjumocap/zjumocap_train.yaml",
+           "workspace", str(fixture), "train.epoch", "2", "ep_iter", "3",
+           "eval_ep", "1", "save_ep", "1", "train.num_workers", "4",
+           *VIDEO_FRAMES_OPT, "test_dataset.render_views", "[1, 2, 1]",
+           "train_dataset.frames", "[0, -1, 1]",
+           "train_dataset.input_views", "[0, -1, 1]",
+           "train_dataset.render_views", "[0, -1, 1]", "eval_lpips", "False"]
+    cfg = make_cfg(zju[1], zju[2:])
+    model_dir = Path(cfg.trained_model_dir)
+    import shutil
+
+    shutil.rmtree(model_dir, ignore_errors=True)
+    first, out1 = run_train_cli(zju)
+    want = {"0.pth", "1.pth"}
+    have = {p.name for p in model_dir.glob("*.pth")}
+    cfg_files = {p.name for p in (model_dir / "config").glob("*")}
+    if have != want or cfg_files != {"train_cmd.txt", "train_config.yaml"}:
+        fail(f"train_cli: checkpoints {sorted(have)}, config files "
+             f"{sorted(cfg_files)}")
+    if make_cfg(str(model_dir / "config" / "train_config.yaml")) != cfg:
+        fail("train_cli: config/train_config.yaml does not read back as the "
+             "run's config")
+    resume_args = list(zju)
+    resume_args[resume_args.index("train.epoch") + 1] = "3"
+    resume_args[resume_args.index("eval_ep") + 1] = "100"
+    second, out2 = run_train_cli(resume_args)
+    if "resumed at epoch 2" not in out2 or not (model_dir / "2.pth").is_file():
+        fail(f"train_cli: the resume did not start at epoch 2\n{out2[-2000:]}")
+    for name, rec, steps in (("zjumocap", first, 6),
+                             ("zjumocap_resume", second, 3)):
+        if len(rec["step_ms"]) != steps:
+            fail(f"train_cli {name}: {len(rec['step_ms'])} steps, expected "
+                 f"{steps}")
+        if rec["train_launches"].get("depth_regression") != 2 * steps:
+            fail(f"train_cli {name}: K4 launched {rec['train_launches']} in "
+                 f"{steps} train steps, expected 2 a step")
+    v = first["val_launches"]
+    if not (v.get("cost_volume", 0) > 0 and v.get("render", 0) > 0
+            and v.get("render_l0", 0) > 0 and v.get("depth_regression", 0) > 0):
+        fail(f"train_cli zjumocap: the validation launched {v}")
+    outdoor = ["--cfg_file", "configs/enerf/enerf_outdoor/actor1.yaml",
+               "workspace", str(fixture), "train.epoch", "1", "ep_iter", "2",
+               "eval_ep", "100", "save_ep", "1", "train.num_workers", "4",
+               "train_dataset.frames", "[0, -1, 1]"]
+    shutil.rmtree(make_cfg(outdoor[1], outdoor[2:]).trained_model_dir,
+                  ignore_errors=True)
+    third, _ = run_train_cli(outdoor)
+    k4_step = COMPOSITE_PER_FRAME["depth_regression"]
+    if len(third["step_ms"]) != 2 or \
+            third["train_launches"].get("depth_regression") != 2 * k4_step:
+        fail(f"train_cli actor1: 2 steps and K4 {k4_step} a step expected: "
+             f"{third}")
+    launches = {k: first["train_launches"].get(k, 0)
+                + first["val_launches"].get(k, 0)
+                for k in ("cost_volume", "render", "render_l0",
+                          "depth_regression")}
+    emit("train_cli", zjumocap=first, zjumocap_resume=second,
+         actor1=third, launches=launches, checkpoints=sorted(have),
+         nvidia_smi=smi_line)
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "enerf_tpu_torch" / "__init__.py").is_file():
         fail(f"no enerf_tpu_torch package next to {Path(__file__).name}: run "
@@ -1857,6 +2496,9 @@ def main() -> None:
     paths["composite"], composite_calls = phase_composite(torch)
     paths["val"], val_calls = phase_val(torch)
     paths["run_dtu"] = phase_run_dtu(torch, smi_line)
+    phase_jpeg(torch, smi_line)
+    paths["run_zjumocap"] = phase_run_zjumocap(torch, smi_line)
+    paths["run_outdoor"] = phase_run_outdoor(torch, smi_line)
     path_calls = {"human": human_calls, "composite": composite_calls,
                   "val": val_calls}
     k4 = phase_k4(torch, cfg)
@@ -1864,6 +2506,8 @@ def main() -> None:
     paths["train"], state, step, train_batch = phase_train(torch)
     profile_device(torch, "train_profile",
                    lambda: step(state, train_batch), 2, "step")
+    del state, step, train_batch
+    paths["train_cli"] = phase_train_cli(smi_line)
 
     def launches(kernel):
         by_path = {p: n[kernel] for p, n in paths.items()}

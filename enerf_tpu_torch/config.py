@@ -9,8 +9,8 @@ needed.
 
 The JAX package's TPU-only knobs (``fused_render``, ``fused_gather_blend``,
 ``fused_volume``, ``gather_bf16``, ``fused_fast_const``, ``use_pallas``,
-``train_packed_render``, ``train_render_chunk``, ``debug_nans``,
-``mesh_shape``, ``mesh_axes``) are not fields here: the port's kernels have
+``train_packed_render``, ``train_render_chunk``, ``mesh_shape``,
+``mesh_axes``) are not fields here: the port's kernels have
 no switch, and the loader drops those keys (see ``_TPU_ONLY_KEYS``).
 """
 
@@ -173,6 +173,8 @@ class Config:
     log_interval: int = 1
     record_interval: int = 20
     fps: int = 24
+    # the train CLI's NaN tripwire: torch.autograd.set_detect_anomaly
+    debug_nans: bool = False
 
     @property
     def trained_model_dir(self) -> str:
@@ -200,7 +202,7 @@ class Config:
 _TPU_ONLY_KEYS = {
     "fused_render", "fused_gather_blend", "fused_volume", "gather_bf16",
     "fused_fast_const", "use_pallas", "train_packed_render",
-    "train_render_chunk", "debug_nans", "mesh_shape", "mesh_axes",
+    "train_render_chunk", "mesh_shape", "mesh_axes",
     "bn_update_every",
 }
 
@@ -600,7 +602,70 @@ def composite_eval_config() -> Config:
 
 
 def asdict(cfg) -> Dict:
-    return dataclasses.asdict(cfg)
+    """The config as the tree of a YAML file that ``make_cfg`` reads back
+    into an equal ``Config``: tuples as lists, and each dataset's
+    ``extra`` pairs back among its keys (as the config files hold them)."""
+    def plain(v):
+        if isinstance(v, dict):
+            return {k: plain(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [plain(x) for x in v]
+        return v
+
+    tree = plain(dataclasses.asdict(cfg))
+    for key in ("train_dataset", "test_dataset"):
+        ds = tree[key]
+        for k, v in ds.pop("extra"):
+            ds[k] = v
+    return tree
+
+
+def _yaml_dump_scalar(v: Any, where: str) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        if "." not in text:          # 1e-08 -> 1.0e-08, as PyYAML writes
+            text = text.replace("e", ".0e") if "e" in text else text + ".0"
+        return text
+    if isinstance(v, str) and "\n" not in v:
+        return "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"{where}: {v!r} has no form in the config files' YAML")
+
+
+def dump_yaml(tree: Dict, indent: int = 0) -> str:
+    """``tree`` (nested dicts of scalars and lists of scalars) as block
+    YAML of the subset ``parse_yaml`` reads; ``yaml.safe_load`` gives the
+    same tree."""
+    out = []
+    pad = " " * indent
+    for k, v in tree.items():
+        key = str(k)
+        if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", key):
+            raise ValueError(f"key {key!r} has no form in the YAML subset")
+        if isinstance(v, dict):
+            if not v:
+                raise ValueError(f"{key}: an empty mapping has no form in "
+                                 "the YAML subset")
+            out.append(f"{pad}{key}:\n" + dump_yaml(v, indent + 4))
+        elif isinstance(v, (list, tuple)):
+            items = [_yaml_dump_scalar(x, key) if not isinstance(
+                x, (list, tuple, dict)) else None for x in v]
+            if None in items:
+                raise ValueError(f"{key}: a nested collection has no form "
+                                 "in the YAML subset")
+            out.append(f"{pad}{key}: [{', '.join(items)}]\n")
+        else:
+            out.append(f"{pad}{key}: {_yaml_dump_scalar(v, key)}\n")
+    return "".join(out)
 
 
 __all__ = [
@@ -608,5 +673,5 @@ __all__ = [
     "DatasetConfig", "Config", "make_cfg", "load_yaml_tree", "parse_yaml",
     "YAMLSubsetError", "apply_opts", "dtu_eval_config", "human_eval_config", "human_mask",
     "composite_eval_config", "HUMAN_MASK_FRAC", "HUMAN_WINDOW_HW", "replace",
-    "asdict",
+    "asdict", "dump_yaml",
 ]

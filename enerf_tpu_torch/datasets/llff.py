@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -26,12 +26,13 @@ SCENES = ("fern", "flower", "fortress", "horns", "leaves", "orchids",
           "room", "trex")
 
 
-def _area_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
-    """OpenCV's ``computeResizeAreaTab`` along one axis: for each output
-    index, the source indices and their float32 weights (the overlap of the
-    output cell with each source pixel over the cell's width), padded with
-    zero weights to a common tap count."""
-    scale = 1.0 / (dsize / ssize)
+def _area_taps(ssize: int, dsize: int, scale: float
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab`` along one axis (``scale`` source
+    pixels an output pixel): for each output index, the source indices and
+    their float32 weights (the overlap of the output cell with each source
+    pixel over the cell's width), padded with zero weights to a common tap
+    count."""
     taps = []
     for dx in range(dsize):
         fsx1 = dx * scale
@@ -55,23 +56,72 @@ def _area_taps(ssize: int, dsize: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, wgt
 
 
-def resize_area(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+def _resize_area_int(img: np.ndarray, hw: Tuple[int, int], sy: int,
+                     sx: int) -> np.ndarray:
+    """OpenCV's ``resizeAreaFast`` (whole scale factors on both axes): each
+    output pixel is the float32 sum of its sy x sx block, row by row,
+    added in groups of four, times 1 / (sy sx); a block cut by the image's
+    edge is the sum of its pixels over their count."""
+    h, w = hw
+    H, W = img.shape[:2]
+    area = sy * sx
+    offs = [(dy, dx) for dy in range(sy) for dx in range(sx)]
+    hb, wb = min(h, H // sy), min(w, W // sx)
+    out = np.zeros((h, w) + img.shape[2:], np.float32)
+
+    def tap(dy, dx):
+        return img[dy:dy + hb * sy:sy, dx:dx + wb * sx:sx]
+
+    acc = np.zeros((hb, wb) + img.shape[2:], np.float32)
+    k = 0
+    while k + 4 <= area:
+        acc += ((tap(*offs[k]) + tap(*offs[k + 1])) + tap(*offs[k + 2])
+                ) + tap(*offs[k + 3])
+        k += 4
+    for dy, dx in offs[k:]:
+        acc += tap(dy, dx)
+    out[:hb, :wb] = acc * np.float32(1.0 / area)
+    for y in range(h):
+        for x in range(w):
+            if y < hb and x < wb:
+                continue
+            block = img[y * sy:(y + 1) * sy, x * sx:(x + 1) * sx]
+            n = block.shape[0] * block.shape[1]
+            if n == 0:
+                continue
+            total = np.zeros(img.shape[2:], np.float32)
+            for row in block:
+                for px in row:
+                    total += px
+            out[y, x] = total / np.float32(n)
+    return out
+
+
+def resize_area(img: np.ndarray, hw: Tuple[int, int],
+                scale: Optional[Tuple[float, float]] = None) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`` for a
     float32 (H, W[, C]) image and a downscale on both axes: each output
     pixel averages the source pixels its cell covers, weighted by overlap,
     the rows of a source line first, then the lines, in float32 in
-    OpenCV's order. Raises on an upscale (OpenCV switches to another
-    filter there)."""
+    OpenCV's order; at whole scale factors OpenCV's block average
+    (``_resize_area_int``). ``scale`` (source pixels an output pixel, y
+    and x) is OpenCV's when the call gives ``fx``, ``fy`` (1 / fx); by
+    default H / h and W / w. Raises on an upscale (OpenCV switches to
+    another filter there)."""
     img = np.asarray(img, np.float32)
     H, W = img.shape[:2]
     h, w = hw
     if h > H or w > W:
         raise ValueError(f"resize_area: ({H}, {W}) -> ({h}, {w}) is an "
                          "upscale; only downscales are supported")
-    if (h, w) == (H, W):
+    if (h, w) == (H, W) and scale is None:
         return img.copy()
-    xi, xw = _area_taps(W, w)
-    yi, yw = _area_taps(H, h)
+    sy, sx = scale if scale is not None else (1.0 / (h / H), 1.0 / (w / W))
+    eps = np.finfo(np.float64).eps
+    if abs(sy - round(sy)) < eps and abs(sx - round(sx)) < eps:
+        return _resize_area_int(img, hw, int(round(sy)), int(round(sx)))
+    xi, xw = _area_taps(W, w, sx)
+    yi, yw = _area_taps(H, h, sy)
     shape = (-1,) + (1,) * (img.ndim - 2)
     rows = np.zeros((H, w) + img.shape[2:], np.float32)
     for k in range(xi.shape[1]):

@@ -35,6 +35,9 @@ DATASETS = {
     "nerf_synthetic": "enerf_tpu_torch.datasets.nerf_synthetic",
     "llff": "enerf_tpu_torch.datasets.llff",
     "synthetic": "enerf_tpu_torch.datasets.synthetic",
+    "zjumocap": "enerf_tpu_torch.datasets.zjumocap",
+    "enerf_outdoor": "enerf_tpu_torch.datasets.enerf_outdoor",
+    "enerf_outdoor_path": "enerf_tpu_torch.datasets.enerf_outdoor_path",
 }
 
 # keys kept on the host (eval-only ground truth; 'meta' mirrors the

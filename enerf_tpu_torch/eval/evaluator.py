@@ -22,6 +22,7 @@ from enerf_tpu_torch.eval.lpips import (
     LPIPSMetric,
     lpips_skip_notice,
 )
+from enerf_tpu_torch.utils.cv import bounding_rect  # noqa: F401 (re-export)
 
 EVAL_DEPTH_SCENES = ("scan1", "scan8", "scan21", "scan103", "scan110")
 
@@ -38,17 +39,6 @@ def resize_nearest(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / W))).astype(np.int64),
                     W - 1)
     return img[ys[:, None], xs[None, :]]
-
-
-def bounding_rect(mask: np.ndarray) -> Tuple[int, int, int, int]:
-    """``cv2.boundingRect`` of a 2-D mask in numpy: (x, y, w, h) of the
-    smallest upright rectangle holding its non-zero pixels; (0, 0, 0, 0)
-    when there are none."""
-    ys, xs = np.nonzero(mask)
-    if ys.size == 0:
-        return 0, 0, 0, 0
-    x0, y0 = int(xs.min()), int(ys.min())
-    return x0, y0, int(xs.max()) + 1 - x0, int(ys.max()) + 1 - y0
 
 
 class Evaluator:

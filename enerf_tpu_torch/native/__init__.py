@@ -1,14 +1,18 @@
 """Native (C++) host-side data-pipeline kernels with numpy fallbacks; the
-port's copy of ``enerf_tpu/native``, plus the PNG row unfilter.
+port's copy of ``enerf_tpu/native``, plus the PNG row unfilter and a
+baseline JPEG codec (``jpeg.cc``).
 
 The loaders' host work (image decode and normalize, PFM flips, batch
 collation) runs on the CPU beside the card, where numpy's multi-pass
 expressions (``(img / 255 * 2 - 1).astype(np.float32)`` walks the image
 four times through float64 temporaries) cost more than the one fused pass
-of ``host_ops.cc``. This module builds it with g++ at first use, into
+of ``host_ops.cc``. This module builds ``host_ops.cc`` and ``jpeg.cc``
+with g++ at first use into one library,
 ``build/native/libhost_ops-<hash>.so`` beside the package (the hash covers
-the source, so an edited source is built again), and falls back to numpy
-when no compiler is available.
+the sources, so an edited source is built again), and falls back to numpy
+when no compiler is available, except for the JPEG codec: a Huffman
+decoder in Python would take seconds an image, so without the library
+``jpeg_decode`` and ``jpeg_encode`` raise.
 
 API (all return np.ndarray, C-contiguous):
 - ``u8_to_unit(img)``        u8 -> f32 in [0, 1]
@@ -19,6 +23,9 @@ API (all return np.ndarray, C-contiguous):
   fused nearest 1/scale downsample (DTU depth path)
 - ``collate(samples)``       stack into a preallocated batch buffer
 - ``png_unfilter(raw, h, stride, bpp)``  PNG scanlines -> pixel bytes
+- ``jpeg_decode(data)``      JPEG bytes -> u8 (H, W) or (H, W, 3), equal to
+  libjpeg-turbo's default decode (``jpeg.cc`` says what it reads)
+- ``jpeg_encode(img, quality)``  u8 image -> baseline JPEG bytes
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from typing import List, Optional
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "host_ops.cc"
+_SRCS = tuple(Path(__file__).resolve().parent / name
+              for name in ("host_ops.cc", "jpeg.cc"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 
 _lib: Optional[ctypes.CDLL] = None
@@ -42,7 +50,8 @@ _lock = threading.Lock()
 
 
 def _so_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in _SRCS)
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"libhost_ops-{digest}.so"
 
 
@@ -52,9 +61,9 @@ def _build(so: Path) -> bool:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     try:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(_SRC), "-o",
-                        str(tmp)], check=True, capture_output=True,
-                       timeout=120)
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC",
+                        *map(str, _SRCS), "-o", str(tmp)], check=True,
+                       capture_output=True, timeout=180)
         os.replace(tmp, so)
         return True
     except (OSError, subprocess.SubprocessError):
@@ -90,6 +99,14 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.pfm_flip_downsample_f32.argtypes = [f32p, f32p, st, st, st]
         lib.png_unfilter.argtypes = [u8p, u8p, st, st, st]
         lib.png_unfilter.restype = ctypes.c_int
+        cp, ip = ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)
+        lib.jpeg_header.argtypes = [u8p, st, ip, ip, ip, cp, st]
+        lib.jpeg_header.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [u8p, st, u8p, st, cp, st]
+        lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, u8p, st]
+        lib.jpeg_encode.restype = st
         for fn in (lib.u8_to_unit_f32, lib.u8_to_pm1_f32,
                    lib.f32_scale_offset, lib.u8_rgba_over_white_f32,
                    lib.collate_f32, lib.pfm_flip_downsample_f32):
@@ -242,3 +259,58 @@ def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int
         rec[y + 1, x + 1] = (line[y, x] + pred) & 0xFF
     out[:] = rec[1:, 1:].reshape(h, stride)
     return out
+
+
+def _jpeg_lib(what: str) -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            f"{what}: JPEG files are coded only by the native library "
+            f"(enerf_tpu_torch/native/jpeg.cc), which did not build or load "
+            f"here (g++ into {BUILD_DIR})")
+    return lib
+
+
+def jpeg_decode(data: bytes, name: str = "<jpeg>") -> np.ndarray:
+    """The pixels of a baseline JPEG file's bytes: u8 (H, W) for gray,
+    (H, W, 3) RGB for YCbCr, as libjpeg-turbo decodes them by default.
+    Raises ``ValueError`` for a file the decoder does not read (see
+    ``jpeg.cc``) and ``RuntimeError`` without the native library."""
+    lib = _jpeg_lib(name)
+    buf = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(256)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if lib.jpeg_header(_u8p(buf), buf.size, ctypes.byref(h), ctypes.byref(w),
+                       ctypes.byref(c), err, len(err)):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    shape = (h.value, w.value) if c.value == 1 else (h.value, w.value, c.value)
+    out = np.empty(shape, np.uint8)
+    if lib.jpeg_decode(_u8p(buf), buf.size, _u8p(out), out.size, err,
+                       len(err)):
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
+
+
+def jpeg_encode(img: np.ndarray, quality: int = 75) -> bytes:
+    """Baseline JPEG bytes of a u8 (H, W) gray or (H, W, 3) RGB image: 4:2:0
+    for RGB, the IJG ``quality``-scaled Annex K tables, the standard
+    Huffman tables. Raises ``RuntimeError`` without the native library."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] not in (1, 3)):
+        raise ValueError(f"jpeg_encode: u8 (H, W) or (H, W, 3) image "
+                         f"expected, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    if not (1 <= h <= 65535 and 1 <= w <= 65535):
+        raise ValueError(f"jpeg_encode: size {h}x{w} out of JPEG's range")
+    lib = _jpeg_lib("jpeg_encode")
+    cap = img.size + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode(_u8p(img), h, w, c, int(quality), _u8p(out), cap)
+        if n == 0:
+            raise ValueError("jpeg_encode: the encoder failed")
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n

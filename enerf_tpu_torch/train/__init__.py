@@ -6,6 +6,7 @@ from enerf_tpu_torch.train.checkpoint import (
     load_network,
     load_pretrain,
     save_model,
+    save_trained_config,
 )
 from enerf_tpu_torch.train.loss import compute_loss
 from enerf_tpu_torch.train.recorder import Recorder
@@ -16,4 +17,5 @@ from enerf_tpu_torch.train.vgg import load_vgg16_params
 
 __all__ = ["TrainState", "create_train_state", "make_train_step",
            "compute_loss", "Trainer", "Recorder", "load_vgg16_params",
-           "save_model", "load_model", "load_network", "load_pretrain"]
+           "save_model", "load_model", "load_network", "load_pretrain",
+           "save_trained_config"]

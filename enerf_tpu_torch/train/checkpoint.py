@@ -5,17 +5,20 @@ A checkpoint is ``torch.save`` of ``{net, optim, scheduler, recorder,
 epoch}`` as ``{epoch}.pth`` or ``latest.pth`` in the model directory
 (``$workspace/trained_model/{task}/{exp_name}``); the 5 newest numbered
 files are kept. Files are read with ``torch.load(weights_only=True)``.
+``save_trained_config`` writes the command line and the resolved config
+beside them (``config/train_cmd.txt``, ``config/train_config.yaml``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import sys
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
-from enerf_tpu_torch.config import Config
+from enerf_tpu_torch.config import Config, asdict, dump_yaml
 from enerf_tpu_torch.train.state import TrainState
 
 KEEP = 5
@@ -107,3 +110,20 @@ def load_pretrain(cfg: Config, model: nn.Module) -> bool:
     pre_dir = os.path.join(cfg.workspace, "trained_model", cfg.task,
                            cfg.pretrain)
     return load_network(model, pre_dir) > 0
+
+
+def save_trained_config(cfg: Config, argv: Optional[List[str]] = None
+                        ) -> str:
+    """Snapshot the command line (``argv``, default ``sys.argv``) and the
+    resolved config beside the checkpoints (reference save_trained_config,
+    net_utils.py:485-493): ``config/train_cmd.txt`` and
+    ``config/train_config.yaml``, the latter in the YAML subset the port's
+    reader reads (``dump_yaml`` of ``asdict``), so that ``make_cfg`` of the
+    file gives ``cfg`` again. Returns the config directory."""
+    cfg_dir = os.path.join(cfg.trained_model_dir, "config")
+    os.makedirs(cfg_dir, exist_ok=True)
+    with open(os.path.join(cfg_dir, "train_cmd.txt"), "w") as f:
+        f.write(" ".join(sys.argv if argv is None else argv))
+    with open(os.path.join(cfg_dir, "train_config.yaml"), "w") as f:
+        f.write(dump_yaml(asdict(cfg)))
+    return cfg_dir

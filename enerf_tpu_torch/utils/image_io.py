@@ -1,6 +1,6 @@
-"""Image files without an image library: the PNG reader and writer of the
-port's loaders, in place of the ``imageio.v2.imread`` / ``imwrite`` calls
-of the JAX package's datasets.
+"""Image files without an image library: the PNG and JPEG readers and
+writers of the port's loaders, in place of the ``imageio.v2.imread`` /
+``imwrite`` calls of the JAX package's datasets.
 
 A PNG is a chain of chunks; the image is the zlib stream of its IDAT
 chunks, one filter-type byte before each row of pixel bytes. ``imread``
@@ -10,12 +10,20 @@ inflates it with ``zlib`` and undoes the five row filters with
 imageio returns for them: u8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4).
 Anything else (a palette, 16-bit samples, Adam7 interlacing, a
 transparency chunk, a bad checksum) raises rather than giving a wrong
-image. A JPEG is read through imageio when it is installed; without it,
-``imread`` raises ``ImportError``.
+image.
 
-``imwrite`` writes the same four kinds, each row filtered by the type the
-caller picks (``filters``, cycled over the rows), so a test can make
-every filter type appear in one file.
+A JPEG is decoded by the native library's baseline decoder
+(``native/jpeg.cc``): u8 (H, W) for gray, (H, W, 3) for colour, equal to
+what ``imageio.v2.imread`` returns through libjpeg-turbo. A JPEG it does
+not read (progressive, arithmetic-coded, 12-bit, CMYK, an EXIF rotation,
+truncated) raises ``JPEGError``; without the native library, reading a
+JPEG raises ``RuntimeError``: there is no slow fallback.
+
+``imwrite`` writes a PNG of the same four kinds, each row filtered by the
+type the caller picks (``filters``, cycled over the rows), so a test can
+make every filter type appear in one file; or, to a ``.jpg`` / ``.jpeg``
+path, a baseline JPEG (``encode_jpeg``: 4:2:0, IJG quality 75 by
+default).
 """
 
 from __future__ import annotations
@@ -39,26 +47,36 @@ class PNGError(ValueError):
     """A PNG file this reader does not decode (or a damaged one)."""
 
 
+class JPEGError(ValueError):
+    """A JPEG file the decoder does not read (or a damaged one)."""
+
+
 def imread(path: str) -> np.ndarray:
     """The image at ``path`` as u8, shaped as ``imageio.v2.imread`` shapes
-    it: a PNG by this module's decoder, a JPEG through imageio."""
+    it: a PNG or a JPEG, each by the port's own decoder."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, path)
     if data.startswith(JPEG_SIGNATURE):
-        return _read_jpeg(path)
+        return decode_jpeg(data, path)
     raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
-def _read_jpeg(path: str) -> np.ndarray:
+def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
+    """Decode the bytes of a baseline JPEG file (see the module
+    docstring)."""
     try:
-        import imageio.v2 as imageio
-    except ImportError:
-        raise ImportError(
-            f"{path}: the port reads JPEG files only through imageio, which "
-            "is not installed here; it decodes PNG files itself") from None
-    return np.asarray(imageio.imread(path))
+        return native.jpeg_decode(data, name)
+    except ValueError as e:
+        raise JPEGError(str(e)) from None
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
+    """Baseline JPEG bytes of a u8 (H, W) or (H, W, 3) image: 4:2:0 for
+    colour, the IJG ``quality``-scaled Annex K tables, the standard Huffman
+    tables."""
+    return native.jpeg_encode(img, quality)
 
 
 def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
@@ -163,7 +181,14 @@ def encode_png(img: np.ndarray,
 
 
 def imwrite(path: str, img: np.ndarray,
-            filters: Union[int, Sequence[int]] = 0) -> None:
-    """Write ``img`` as a PNG file (``encode_png``)."""
+            filters: Union[int, Sequence[int]] = 0,
+            quality: int = 75) -> None:
+    """Write ``img`` as a JPEG file when ``path`` ends in ``.jpg`` or
+    ``.jpeg`` (``encode_jpeg`` at ``quality``), else as a PNG file
+    (``encode_png`` with ``filters``)."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        data = encode_jpeg(img, quality)
+    else:
+        data = encode_png(img, filters)
     with open(path, "wb") as f:
-        f.write(encode_png(img, filters))
+        f.write(data)

@@ -128,10 +128,8 @@ def test_reference_dataset_paths_map_as_in_jax(ref, module):
             == jax_cfg.test_dataset_module == module)
 
 
-@pytest.mark.parametrize("module", ["enerf_tpu.datasets.zjumocap",
-                                    "enerf_tpu.datasets.enerf_outdoor",
-                                    "enerf_tpu.datasets.enerf_outdoor_path",
-                                    "enerf_tpu.datasets.zjumocap_interactive"])
+@pytest.mark.parametrize("module", [
+    "enerf_tpu.datasets.zjumocap_interactive"])
 def test_unported_dataset_raises(module):
     from enerf_tpu_torch.datasets.loader import make_dataset
 
@@ -223,14 +221,21 @@ def test_png_decoder_refuses(case):
 
 
 def test_jpeg_without_imageio_raises(tmp_path, monkeypatch):
+    """A JPEG is read by the native decoder, imageio made unimportable;
+    without the native library as well, reading it raises (no fallback)."""
     import sys
 
     path = str(tmp_path / "im.jpg")
-    imageio.imwrite(path, np.zeros((8, 8, 3), np.uint8))
-    assert image_io.imread(path).shape == (8, 8, 3)
+    img = np.random.RandomState(0).randint(0, 256, (8, 8, 3)).astype(np.uint8)
+    imageio.imwrite(path, img)
+    ref = imageio.imread(path)
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
-    with pytest.raises(ImportError, match="JPEG"):
+    if pnative.available():
+        np.testing.assert_array_equal(image_io.imread(path), ref)
+    monkeypatch.setattr(pnative, "_lib", None)
+    monkeypatch.setattr(pnative, "_tried", True)
+    with pytest.raises(RuntimeError, match="JPEG"):
         image_io.imread(path)
 
 

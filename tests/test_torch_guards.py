@@ -1,5 +1,5 @@
 """Guards of the port's contract: it never imports JAX or the JAX package
-(nor PyYAML, OpenCV, imageio or tqdm, which it does without),
+(nor PyYAML, OpenCV, imageio, Pillow or tqdm, which it does without),
 its entry points never drop to the CPU on their own, its kernel wrappers
 never fall back, and its own copies of the config and synthetic-data
 modules equal the JAX package's."""
@@ -24,13 +24,11 @@ from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "enerf_tpu")
-# packages the port does without: nothing of it imports them, but imageio
-# behind the PNG reader's JPEG branch (``utils/image_io.py:_read_jpeg``)
-UNNEEDED = ("yaml", "cv2", "imageio", "tqdm")
+# packages the port does without: nothing of it imports them
+UNNEEDED = ("yaml", "cv2", "imageio", "tqdm", "PIL")
 # not loaded at all by the package's modules (torch.hub loads tqdm itself
 # where it is installed)
-LOADED_FORBIDDEN = ("yaml", "cv2", "imageio")
-LAZY_ALLOWED = {("enerf_tpu_torch/utils/image_io.py", "imageio.v2")}
+LOADED_FORBIDDEN = ("yaml", "cv2", "imageio", "PIL")
 
 
 def test_no_jax_import_in_subprocess():
@@ -76,6 +74,11 @@ def test_no_jax_import_in_subprocess():
         "import enerf_tpu_torch.datasets.dtu\n"
         "import enerf_tpu_torch.datasets.nerf_synthetic\n"
         "import enerf_tpu_torch.datasets.llff\n"
+        "import enerf_tpu_torch.datasets.zjumocap\n"
+        "import enerf_tpu_torch.datasets.enerf_outdoor\n"
+        "import enerf_tpu_torch.datasets.enerf_outdoor_path\n"
+        "import enerf_tpu_torch.utils.camera_io, enerf_tpu_torch.utils.ply\n"
+        "import enerf_tpu_torch.train.__main__\n"
         "from enerf_tpu_torch.config import make_cfg\n"
         "make_cfg('configs/enerf/dtu_pretrain.yaml')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -100,8 +103,8 @@ def _imports(path: Path):
 def test_no_jax_import_in_sources():
     """No module of the package, and not ``chip_smoke.py`` (its ``run_dtu``
     phase included), names JAX, flax or enerf_tpu in an import statement,
-    lazy imports included; none imports PyYAML, OpenCV, imageio or tqdm,
-    but imageio in the PNG reader's JPEG branch."""
+    lazy imports included; none imports PyYAML, OpenCV, imageio, Pillow or
+    tqdm."""
     paths = sorted((REPO / "enerf_tpu_torch").rglob("*.py"))
     paths.append(REPO / "chip_smoke.py")
     for path in paths:
@@ -109,9 +112,11 @@ def test_no_jax_import_in_sources():
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, (rel, name)
-            if root in UNNEEDED:
-                assert (rel, name) in LAZY_ALLOWED, (rel, name)
-    assert "def phase_run_dtu" in (REPO / "chip_smoke.py").read_text()
+            assert root not in UNNEEDED, (rel, name)
+    smoke = (REPO / "chip_smoke.py").read_text()
+    for phase in ("run_dtu", "jpeg", "run_zjumocap", "run_outdoor",
+                  "train_cli"):
+        assert f"def phase_{phase}" in smoke, phase
 
 
 def test_build_model_without_device_needs_cuda(monkeypatch):
