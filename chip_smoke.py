@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
            cascade levels of the 512x640 DTU frame, with a padded view, and
            on a level-0 grid cut to 63x79 (a ragged last block); its time
            by CUDA events around one call, over a run of calls, and on the
-           device alone (torch.profiler)
+           device alone (torch.profiler; every session opens with 128 spin
+           kernels, since the trace loses a session's first records)
   k1_crop  its crop-window mode: the composite frame's fg windows at both
            levels, a window across the frame's edge, a negative origin, a
            ragged window, a batch of 2
@@ -84,6 +85,23 @@ Phases, each printing one JSON line:
            frames of 1080x1920 JPEGs, bkgd plates, intri/extri.yml,
            vhull, background.ply) on actor1.yaml (ENeRFComposite at
            768x1024): K1 4, K4 4 a frame
+  interactive  ``python -m enerf_tpu_torch.gui_human --headless 12`` in a
+           subprocess on the ZJU-MoCap scene (configs/enerf/interactive/
+           zjumocap.yaml: ENeRFHuman at 512x512, window (448, 288), 2 of
+           the 6 cameras a query, both frames cached at init): 12 frames
+           along the camera rail, launches a frame K1 2, K4 2, render 1;
+           the steady fps, each frame's query, upload (ms, bytes), rays +
+           mask, forward, readback and u8 ms, the init seconds, the peak
+           memory; the first frame vs the plain path and the CPU; the
+           first query's rays and arrays vs their rebuild on the CPU and
+           its mask_at_box vs numpy's slab test; interactive.mp4 read back
+           by the port's reader
+  visualize  ``enerf_tpu_torch.run``'s ``main`` with ``--type visualize`` on
+           the outdoor scene (actor1_path.yaml, num_circle_view 4, one
+           view a scene frame): launches a frame K1 4, K4 4; frames,
+           forward ms, the visualizer's and the encoding's host ms; the
+           first frame vs the plain path; color.mp4 and depth.mp4 read
+           back (frames, size, fps)
   k4       the depth-regression kernel vs its plain version, forward and
            gradient, at the train shapes of both cascade levels and the
            eval level-0 shape, then 5 planes over a ragged pixel count, a
@@ -108,9 +126,10 @@ Phases, each printing one JSON line:
            at epoch 2, then 2 steps of actor1.yaml on the outdoor scene:
            step ms, loss, peak memory, K4 launched in training and the
            validation's kernels
+  profiler_lead  the lead-in records every profiler session lost
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
 path: frames, human, composite, val, run_dtu, run_zjumocap, run_outdoor,
-train, train_cli; its calls of a human, a
+interactive, visualize, train, train_cli; its calls of a human, a
 composite and a val frame in ``per_frame_by_path``), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Float32 throughout, TF32 off. A bound
@@ -1516,11 +1535,42 @@ def phase_profile(torch, model, batch, frames: int = 2) -> None:
                    "frame")
 
 
+# torch.profiler's CUDA trace loses the first kernel records of a session,
+# torch's own kernels as well as the port's: none in most sessions, a few
+# in every session late in the script, at times over a hundred. Each
+# session therefore opens with LEAD_LAUNCHES spin kernels that take the
+# loss; a session in which none of them survived may have lost measured
+# launches and is run again. How many each session lost is in the
+# ``profiler_lead`` line.
+LEAD_LAUNCHES = 128
+LEAD_KERNEL = "spin_kernel"      # the kernel of torch.cuda._sleep
+LEAD_LOST = []                   # (session label, lead records lost)
+
+
+def lead_in(torch) -> None:
+    """Open a profiler session: LEAD_LAUNCHES spin kernels of ~100 cycles,
+    then a synchronize."""
+    for _ in range(LEAD_LAUNCHES):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def split_lead(events, label: str) -> tuple:
+    """(whether a lead-in record survived, the device records past it);
+    the lead records lost go to LEAD_LOST under ``label``."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    rest = [e for e in device if LEAD_KERNEL not in e.name]
+    LEAD_LOST.append((label, LEAD_LAUNCHES - (len(device) - len(rest))))
+    return len(rest) < len(device), rest
+
+
 def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
     """Device kernel time by name and the device's idle share over ``n``
     calls of ``run_once``, from torch.profiler's CUDA trace (a session
-    with no device record at all is run again, as in ``device_kernel_ms``)."""
-    from torch.autograd import DeviceType
+    that lost its whole lead-in, or recorded no device activity, is run
+    again, as in ``device_kernel_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(6):
@@ -1529,17 +1579,19 @@ def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             for _ in range(n):
                 run_once()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        if kernels:
+        whole, kernels = split_lead(prof.events(), phase)
+        if whole and kernels:
             break
-        print(f"chip_smoke: {phase}: the profiler recorded no device "
-              "activity; profiling again", file=sys.stderr)
+        print(f"chip_smoke: {phase}: the profiler lost the session's lead-in "
+              "or recorded no device activity; profiling again",
+              file=sys.stderr)
     else:
-        fail(f"{phase}: the profiler recorded no device activity 6 times")
+        fail(f"{phase}: the profiler lost the lead-in or recorded no device "
+             "activity 6 times")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -1563,11 +1615,10 @@ def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
     """Mean device time of the kernel named ``kernel_name`` over the last
     ``n`` of ``warmup + n`` calls of ``fn``, from torch.profiler's CUDA
     trace: the kernel alone, without the host time of its wrapper that CUDA
-    events around a call include. The trace now and then lacks launches
-    (CUPTI drops records, up to three sessions in a row have been seen): a
-    session with fewer than ``n`` is run again after a short pause, at most
-    ``tries`` times."""
-    from torch.autograd import DeviceType
+    events around a call include. Each session opens with ``lead_in``; one
+    that lost the whole lead-in or has fewer than ``n`` launches (the
+    trace now and then records nothing at all) is run again after a short
+    pause, at most ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(tries):
@@ -1575,19 +1626,19 @@ def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
             time.sleep(0.5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             for _ in range(warmup + n):
                 fn()
             torch.cuda.synchronize()
-        launches = sorted((e for e in prof.events()
-                           if e.device_type == DeviceType.CUDA
-                           and kernel_name in e.name),
+        whole, kernels = split_lead(prof.events(), kernel_name)
+        launches = sorted((e for e in kernels if kernel_name in e.name),
                           key=lambda e: e.time_range.start)
-        if len(launches) >= n:
+        if whole and len(launches) >= n:
             return statistics.mean(e.time_range.elapsed_us() / 1e3
                                    for e in launches[-n:])
         print(f"chip_smoke: the profiler saw {len(launches)} launches of "
-              f"{kernel_name}, expected {warmup + n}; profiling again",
-              file=sys.stderr)
+              f"{kernel_name}, expected {warmup + n}, lead-in kept: "
+              f"{whole}; profiling again", file=sys.stderr)
     fail(f"the profiler missed launches of {kernel_name} {tries} times")
 
 
@@ -1867,6 +1918,7 @@ OUT_HW = (1080, 1920)         # ENeRF-Outdoor's 1080x1920 frames
 OUT_CAMS, OUT_FRAMES = 4, 2
 # the test splits of both configs cut to the fixtures' frames
 VIDEO_FRAMES_OPT = ["test_dataset.frames", "[0, -1, 1]"]
+INTERACTIVE_FRAMES = 12       # rail frames of the headless GUI loop
 
 
 def _look_at(eye, target):
@@ -2312,6 +2364,197 @@ def phase_run_outdoor(torch, smi_line: str) -> dict:
     return launches
 
 
+# the interactive main path: ``python -m enerf_tpu_torch.gui_human
+# --headless N`` in a subprocess (the module's ``main`` on the command line's
+# arguments, as ``-m`` runs it), the launch counts set to 0 just before
+# and read just after; then the first frame against the plain path on the
+# card and the same model on the CPU, the first query (rays, mask_at_box,
+# the uploaded arrays) against its rebuild on the CPU, the video read back
+# by the port's reader, the peak memory; a "GUI_HUMAN {json}" line at the end
+GUI_RUNNER = r"""
+import copy, json, sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from enerf_tpu_torch import gui_human
+from enerf_tpu_torch.utils.video import read_mp4
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.reset_launches()
+res = gui_human.main(sys.argv[1:])
+launches = cs.read_launches()
+peak = torch.cuda.max_memory_allocated() / 2 ** 30
+model, batch, out = res["renderer"].model, res["first_batch"], res["first_out"]
+with torch.inference_mode():
+    with cs.plain_path():
+        ref = model(batch)
+    cpu = copy.deepcopy(model).cpu()(
+        {k: v.cpu() for k, v in batch.items()})
+plain_err = {k: cs.max_err(torch, out[k], ref[k], cs.E2E_RTOL, cs.E2E_ATOL[k],
+                           f"interactive {k} kernel vs plain path")
+             for k in out if k in cs.E2E_ATOL}
+cpu_err = {k: cs.max_err(torch, out[k].cpu(), cpu[k], cs.E2E_RTOL,
+                         cs.E2E_ATOL[k], f"interactive {k} card vs CPU")
+           for k in out if k in cs.E2E_ATOL}
+# the first query rebuilt on the CPU: its host part through a CPU copy of
+# the dataset's upload and finish; the rays to rtol 1e-6, the other keys
+# exactly, and the card's mask_at_box against numpy's slab test of
+# rays_aabb_mask's rule, differing only where near - far is within 1e-5 of 0
+ds = copy.copy(res["renderer"].dataset)
+ds.device, ds.XY, ds.XYZ = torch.device("cpu"), ds.XY.cpu(), ds.XYZ.cpu()
+host = res["first_host"]
+cpu_q = ds.finish(host, ds.upload(host))
+if set(cpu_q) != set(batch):
+    cs.fail(f"interactive: query keys {sorted(batch)} vs the CPU's "
+            f"{sorted(cpu_q)}")
+query_err = {}
+for k, v in cpu_q.items():
+    if k != "mask_at_box":
+        tol = 1e-6 if k.startswith("rays_") else 0.0
+        query_err[k] = cs.max_err(torch, batch[k].cpu(), v, tol, tol,
+                                  f"interactive query {k} card vs CPU")
+rays = next(v for k, v in cpu_q.items() if k.startswith("rays_"))
+rays = rays[0].numpy()
+d = rays[:, 3:6] / np.linalg.norm(rays[:, 3:6], axis=-1, keepdims=True)
+d = np.where((d >= 0) & (d < 1e-5), np.float32(1e-5), d)
+d = np.where((d < 0) & (d > -1e-5), np.float32(-1e-5), d)
+t0 = (host["bounds"][0] - rays[:, :3]) / d
+t1 = (host["bounds"][1] - rays[:, :3]) / d
+gap = np.minimum(t0, t1).max(-1) - np.maximum(t0, t1).min(-1)
+card_mask = batch["mask_at_box"][0].cpu().numpy() > 0.5
+flip = card_mask != (gap < 0)
+if not (np.abs(gap[flip]) < 1e-5).all():
+    cs.fail(f"interactive: mask_at_box differs from numpy's slab test on "
+            f"{int(flip.sum())} rays, of which "
+            f"{int((np.abs(gap[flip]) >= 1e-5).sum())} are no near-ties")
+frames, fps = read_mp4(res["path"])
+mask = batch["mask_at_box"]
+rec = {k: res[k] for k in ("frames", "fps", "splits", "median_splits",
+                           "encode_ms", "frame_hw", "init_s",
+                           "dataset_init_s")}
+rec.update(launches=launches, peak_mem_gib=peak,
+           kernel_vs_plain_max_abs_err=plain_err,
+           card_vs_cpu_max_abs_err=cpu_err, query_card_vs_cpu_max_abs_err=
+           query_err, mask_near_tie_flips=int(flip.sum()),
+           video_frames=len(frames),
+           video_hw=list(frames[0].shape[:2]), video_fps=fps,
+           mask_rays=int(mask.sum()), rays=int(mask.numel()))
+print("GUI_HUMAN " + json.dumps(rec), flush=True)
+"""
+
+
+def phase_interactive(torch, smi_line: str) -> dict:
+    """The interactive main path: ``python -m enerf_tpu_torch.gui_human
+    --headless INTERACTIVE_FRAMES`` (``GUI_RUNNER``, a subprocess) on
+    configs/enerf/interactive/zjumocap.yaml over ``run_zjumocap``'s scene
+    (``ENeRFHuman`` at 512x512 from the 1024x1024 JPEGs, window (448,
+    288), 2 of the 6 cameras a query, both frames cached at init): the
+    steady fps, each frame's query, upload, rays + mask, forward, readback
+    and u8 ms, the bytes uploaded, the init seconds, the peak memory;
+    launches a frame K1 (crop mode) 2, K4 2, ``render`` 1; the first
+    frame vs the plain path and the CPU; the first query's rays and
+    arrays vs the CPU's and its ``mask_at_box`` vs numpy's slab test
+    (near-ties counted); ``interactive.mp4`` read back."""
+    import os
+
+    fixture = ROOT / "build" / "video_fixture"
+    args = ["--headless", str(INTERACTIVE_FRAMES), "--cfg_file",
+            "configs/enerf/interactive/zjumocap.yaml",
+            "workspace", str(fixture), *VIDEO_FRAMES_OPT]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    sub = subprocess.run([sys.executable, "-c", GUI_RUNNER, *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    secs = time.perf_counter() - t0
+    line = next((ln for ln in sub.stdout.splitlines()
+                 if ln.startswith("GUI_HUMAN ")), None)
+    if sub.returncode != 0 or line is None:
+        fail(f"interactive: python -m enerf_tpu_torch.gui_human "
+             f"{' '.join(args)}: rc {sub.returncode}\n{sub.stdout[-3000:]}"
+             f"\n{sub.stderr[-5000:]}")
+    rec = json.loads(line[len("GUI_HUMAN "):])
+    n = rec["frames"]
+    expect = {k: v * n for k, v in HUMAN_PER_FRAME.items()}
+    if rec["launches"] != expect:
+        fail(f"interactive: kernel launches on the main path "
+             f"{rec['launches']}, expected {expect}")
+    if (rec["video_frames"], rec["video_hw"]) != (n, rec["frame_hw"]) \
+            or rec["frame_hw"] != [512, 512]:
+        fail(f"interactive: interactive.mp4 holds {rec['video_frames']} "
+             f"frames of {rec['video_hw']}, expected {n} of 512x512")
+    if not 0 < rec["mask_rays"] < rec["rays"]:
+        fail(f"interactive: mask_at_box holds {rec['mask_rays']} of "
+             f"{rec['rays']} rays")
+    emit("interactive", subprocess_seconds=secs,
+         launches_per_frame={k: v / n for k, v in rec["launches"].items()},
+         e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL}, nvidia_smi=smi_line,
+         **rec)
+    return rec["launches"]
+
+
+def phase_visualize(torch, smi_line: str) -> dict:
+    """The video main path: ``enerf_tpu_torch.run``'s ``main`` with ``--type
+    visualize`` on configs/enerf/enerf_outdoor/actor1_path.yaml over
+    ``run_outdoor``'s scene (``ENeRFComposite`` at 768x1024, the orbit of
+    ``num_circle_view`` 4, a frame a scene frame): launches a frame K1 4,
+    K4 4; frames, forward ms, the visualizer's and the encoding's host
+    ms; the first frame vs the plain path; ``color.mp4`` and
+    ``depth.mp4`` read back (frames, size, fps)."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch import run
+    from enerf_tpu_torch.config import make_cfg
+    from enerf_tpu_torch.utils.video import read_mp4
+
+    fixture = ROOT / "build" / "video_fixture"
+    cfg_file = "configs/enerf/enerf_outdoor/actor1_path.yaml"
+    opts = ["workspace", str(fixture), *VIDEO_FRAMES_OPT,
+            "test_dataset.num_circle_view", "4"]
+    cfg = make_cfg(cfg_file, opts)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run.main(["--type", "visualize", "--cfg_file", cfg_file, *opts])
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    n = res["frames"]
+    expect = {k: v * n for k, v in COMPOSITE_PER_FRAME.items()}
+    if n < 2 or launches != expect:
+        fail(f"visualize: {n} frames, kernel launches on the main path "
+             f"{launches}, expected {expect}")
+    with plain_path():
+        ref = et.render(res["model"], res["first_batch"])
+    err = {k: max_err(torch, torch.from_numpy(v).cuda(), ref[k], E2E_RTOL,
+                      E2E_ATOL[k], f"visualize {k} kernel vs plain path")
+           for k, v in res["first_out"].items() if k in E2E_ATOL}
+    if not err:
+        fail(f"visualize: no output held against the plain path "
+             f"({sorted(res['first_out'])})")
+    h, w = res["first_batch"]["src_inps"].shape[2:4]
+    crop = [h - int(h * 0.1), w - 2 * int(w * 0.1)]
+    videos = {}
+    for name in ("color.mp4", "depth.mp4"):
+        frames, fps = read_mp4(str(Path(cfg.result_dir) / name))
+        videos[name] = {"frames": len(frames),
+                        "hw": list(frames[0].shape[:2]), "fps": fps}
+        if (len(frames), list(frames[0].shape[:2]), fps) != (n, crop,
+                                                              cfg.fps):
+            fail(f"visualize: {name} holds {videos[name]}, expected {n} "
+                 f"frames of {crop} at {cfg.fps} fps")
+    timed = res["frame_ms"][1:]
+    emit("visualize", cfg_file=cfg_file, opts=opts, frames=n,
+         frame_hw=[int(h), int(w)], cli_seconds=cli_s, launches=launches,
+         launches_per_frame={k: v / n for k, v in launches.items()},
+         frame_ms=res["frame_ms"], median_frame_ms=statistics.median(timed),
+         upload_ms=res["upload_ms"], loader_host_ms=res["loader_host_ms"],
+         loader_wait_ms=res["loader_wait_ms"],
+         visualize_host_ms=res["visualize_ms"],
+         encode_host_ms=res["encode_ms"], videos=videos,
+         kernel_vs_plain_max_abs_err=err,
+         e2e_tol={"rtol": E2E_RTOL, "atol": E2E_ATOL}, nvidia_smi=smi_line)
+    return launches
+
+
 # the train CLI in a subprocess: ``python -m enerf_tpu_torch.train`` run by
 # runpy, the train step timed by CUDA events (a synchronize after each) and
 # the kernel launches counted apart in the train epochs and in Trainer.val;
@@ -2499,6 +2742,8 @@ def main() -> None:
     phase_jpeg(torch, smi_line)
     paths["run_zjumocap"] = phase_run_zjumocap(torch, smi_line)
     paths["run_outdoor"] = phase_run_outdoor(torch, smi_line)
+    paths["interactive"] = phase_interactive(torch, smi_line)
+    paths["visualize"] = phase_visualize(torch, smi_line)
     path_calls = {"human": human_calls, "composite": composite_calls,
                   "val": val_calls}
     k4 = phase_k4(torch, cfg)
@@ -2508,6 +2753,10 @@ def main() -> None:
                    lambda: step(state, train_batch), 2, "step")
     del state, step, train_batch
     paths["train_cli"] = phase_train_cli(smi_line)
+    emit("profiler_lead", lead_launches=LEAD_LAUNCHES,
+         sessions=len(LEAD_LOST), max_lost=max(n for _, n in LEAD_LOST),
+         sessions_with_loss=sum(n > 0 for _, n in LEAD_LOST),
+         lost_by_session=LEAD_LOST)
 
     def launches(kernel):
         by_path = {p: n[kernel] for p, n in paths.items()}

@@ -153,6 +153,8 @@ class Config:
     network_module: str = "enerf_tpu.models.enerf"
     # the evaluator, named the same way; ``factory.make_evaluator`` maps it
     evaluator_module: str = "enerf_tpu.eval.evaluator"
+    # the visualizer, named the same way; ``factory.make_visualizer`` maps it
+    visualizer_module: str = "enerf_tpu.eval.visualizer"
 
     enerf: ENeRFConfig = field(default_factory=ENeRFConfig)
     train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
@@ -511,11 +513,11 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
         enerf_tree = dict(tree.get("enerf", {}))
         enerf_tree["num_fg_layers"] = tree.pop("num_fg_layers")
         tree["enerf"] = enerf_tree
-    # the reference's module paths name the datasets, networks and
-    # evaluators as the JAX package's make_cfg maps them
-    # (enerf_tpu/config.py:446-468)
+    # the reference's module paths name the datasets, networks,
+    # evaluators and visualizers as the JAX package's make_cfg maps them
+    # (enerf_tpu/config.py:446-470)
     for key in ("train_dataset_module", "test_dataset_module",
-                "network_module", "evaluator_module"):
+                "network_module", "evaluator_module", "visualizer_module"):
         name = tree.get(key)
         if isinstance(name, str) and name in _REFERENCE_MODULES:
             tree[key] = _REFERENCE_MODULES[name]
@@ -538,6 +540,9 @@ _REFERENCE_MODULES = {
     "lib.evaluators.enerf": "enerf_tpu.eval.evaluator",
     "lib.evaluators.enerf_human": "enerf_tpu.eval.evaluator_human",
     "lib.evaluators.enerf_composite": "enerf_tpu.eval.evaluator_composite",
+    "lib.visualizers.enerf": "enerf_tpu.eval.visualizer",
+    "lib.visualizers.enerf_interactive":
+        "enerf_tpu.eval.visualizer_interactive",
 }
 
 

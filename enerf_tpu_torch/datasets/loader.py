@@ -36,6 +36,7 @@ DATASETS = {
     "llff": "enerf_tpu_torch.datasets.llff",
     "synthetic": "enerf_tpu_torch.datasets.synthetic",
     "zjumocap": "enerf_tpu_torch.datasets.zjumocap",
+    "zjumocap_interactive": "enerf_tpu_torch.datasets.zjumocap_interactive",
     "enerf_outdoor": "enerf_tpu_torch.datasets.enerf_outdoor",
     "enerf_outdoor_path": "enerf_tpu_torch.datasets.enerf_outdoor_path",
 }
@@ -77,13 +78,20 @@ def dataset_module(module_name: str) -> str:
     return DATASETS[name]
 
 
-def make_dataset(cfg: Config, split: str):
+def make_dataset(cfg: Config, split: str, device=None):
     """The ``Dataset`` of the module the config names for ``split``
-    (reference make_dataset.py:17-30)."""
+    (reference make_dataset.py:17-30). ``device`` is the interactive
+    dataset's, whose ray grid lives on the model's device; no other
+    dataset takes one."""
     ds_cfg = cfg.train_dataset if split == "train" else cfg.test_dataset
     module_name = (cfg.train_dataset_module if split == "train"
                    else cfg.test_dataset_module)
-    module = importlib.import_module(dataset_module(module_name))
+    module_path = dataset_module(module_name)
+    module = importlib.import_module(module_path)
+    if module_path == DATASETS["zjumocap_interactive"]:
+        return module.Dataset(cfg, ds_cfg, device=device)
+    if device is not None:
+        raise ValueError(f"make_dataset: {module_path} takes no device")
     return module.Dataset(cfg, ds_cfg)
 
 

@@ -6,15 +6,19 @@ Per-level, per-image PSNR/SSIM/LPIPS with mask-zeroed eval (DTU depth>0
 mask), optional 10% border crop (LLFF ``eval_center``), per-scene
 breakdown, and depth metrics on the 5 MVSNeRF scenes. Outputs and batches
 arrive as numpy arrays (``Trainer.val`` copies the outputs to the host);
-LPIPS runs on the evaluator's device.
+LPIPS runs on the evaluator's device. With ``cfg.save_result`` each last
+level's [gt | pred] is written to ``result_dir`` as
+``{scene}_{tar_view}_{frame_id}.png`` (the port's PNG writer).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
 
+from enerf_tpu_torch import native
 from enerf_tpu_torch.config import Config
 from enerf_tpu_torch.eval import metrics
 from enerf_tpu_torch.eval.lpips import (
@@ -23,6 +27,7 @@ from enerf_tpu_torch.eval.lpips import (
     lpips_skip_notice,
 )
 from enerf_tpu_torch.utils.cv import bounding_rect  # noqa: F401 (re-export)
+from enerf_tpu_torch.utils.image_io import imwrite
 
 EVAL_DEPTH_SCENES = ("scan1", "scan8", "scan21", "scan103", "scan110")
 
@@ -45,21 +50,23 @@ class Evaluator:
     def __init__(self, cfg: Config, device=None,
                  lpips_path: str = DEFAULT_WEIGHTS):
         """``device`` and ``lpips_path``: where LPIPS runs (default the GPU)
-        and its weights (without the file, no LPIPS is reported).
-        ``cfg.save_result`` raises: writing the result images needs the
-        image utilities, which the port does not have yet."""
-        if cfg.save_result:
-            raise NotImplementedError(
-                "save_result is not supported by enerf_tpu_torch's "
-                "evaluators: writing result images needs the port's image "
-                "utilities (ROADMAP.md, Queue 1, item 8, not ported yet); "
-                "set save_result False")
+        and its weights (without the file, no LPIPS is reported)."""
         self.cfg = cfg
         self.lpips_metric = LPIPSMetric(cfg.eval_lpips, lpips_path, device)
         self._reset()
         if cfg.enerf.eval_depth:
             self.abs, self.acc_2, self.acc_10 = [], [], []
             self.mvs_abs, self.mvs_acc_2, self.mvs_acc_10 = [], [], []
+        if cfg.save_result:
+            os.makedirs(cfg.result_dir, exist_ok=True)
+
+    def _save(self, img: np.ndarray, scene: str, meta: Dict, b: int) -> None:
+        """Write the u8 image ``img`` of sample ``b`` as
+        ``{scene}_{tar_view}_{frame_id}.png`` in ``result_dir``."""
+        tv = meta.get("tar_view", [0] * (b + 1))[b]
+        fid = meta.get("frame_id", [0] * (b + 1))[b]
+        imwrite(os.path.join(self.cfg.result_dir, f"{scene}_{tv}_{fid}.png"),
+                img)
 
     def _reset(self) -> None:
         self.psnrs, self.ssims, self.lpips = [], [], []
@@ -111,6 +118,10 @@ class Evaluator:
                 m = masks[b]
                 gt_b[~m] = 0.0
                 pred_b[~m] = 0.0
+                if cfg.save_result and last:
+                    self._save(native.f32_unit_to_u8(
+                        np.concatenate([gt_b, pred_b], axis=1)),
+                        scenes[b], meta, b)
                 self._record(f"{scenes[b]}_level{i}", last,
                              metrics.psnr_masked(gt_b, pred_b, m),
                              metrics.ssim(gt_b, pred_b), gt_b, pred_b)

@@ -1,7 +1,9 @@
 """Human evaluator (reference lib/evaluators/enerf_human.py); counterpart
 of ``enerf_tpu/eval/evaluator_human.py``: metrics restricted to
 ``mask_at_box`` — PSNR over masked pixels, SSIM/LPIPS over the mask's
-bounding rectangle (``bounding_rect``, numpy for ``cv2.boundingRect``)."""
+bounding rectangle (``bounding_rect``, numpy for ``cv2.boundingRect``).
+With ``cfg.save_result`` each rendered level's [gt | pred], unmasked,
+clipped and truncated to u8, is written as the base evaluator names it."""
 
 from __future__ import annotations
 
@@ -67,6 +69,10 @@ class Evaluator(evaluator.Evaluator):
                 masks = np.ones((B, h, w), np.float32)
 
             for b in range(B):
+                if cfg.save_result:
+                    img = np.concatenate([gt_rgb[b], pred_rgb[b]], axis=1)
+                    self._save((np.clip(img, 0, 1) * 255).astype(np.uint8),
+                               scenes[b], meta, b)
                 m = masks[b] == 1
                 gt_b, pred_b = gt_rgb[b].copy(), pred_rgb[b].copy()
                 gt_b[~m] = 0.0

@@ -1,12 +1,14 @@
-"""The network and the evaluator named by the config; counterpart of
-``make_network`` and ``make_evaluator`` in ``enerf_tpu/factory.py``.
+"""The network, the evaluator and the visualizer named by the config;
+counterpart of ``make_network``, ``make_evaluator`` and ``make_visualizer``
+in ``enerf_tpu/factory.py``.
 
 The JAX package imports the module that ``cfg.network_module`` (or
-``cfg.evaluator_module``) names and builds its ``Network`` (or
-``Evaluator``). The port never imports that module: it maps the module's
-last component to its own class by a table of names. The evaluators are
-imported only when one is asked for, so building a network does not load
-the evaluation layer (LPIPS, scipy).
+``cfg.evaluator_module``, ``cfg.visualizer_module``) names and builds its
+``Network`` (or ``Evaluator``, ``Visualizer``). The port never imports that
+module: it maps the module's last component to its own class by a table of
+names. The evaluators and visualizers are imported only when one is asked
+for, so building a network does not load the evaluation layer (LPIPS,
+scipy).
 """
 
 from __future__ import annotations
@@ -37,6 +39,13 @@ EVALUATORS = {
 }
 
 
+# the port's visualizer modules, each holding a ``Visualizer``
+VISUALIZERS = {
+    "visualizer": "enerf_tpu_torch.eval.visualizer",
+    "visualizer_interactive": "enerf_tpu_torch.eval.visualizer_interactive",
+}
+
+
 def _lookup(key: str, module: str, table: dict):
     name = module.rsplit(".", 1)[-1]
     if name not in table:
@@ -62,6 +71,13 @@ def make_evaluator(cfg: Config, **kwargs):
     """The evaluator ``cfg.evaluator_module`` names; ``kwargs`` go to its
     constructor (``device`` for LPIPS, default the GPU; ``lpips_path``)."""
     return evaluator_class(cfg)(cfg, **kwargs)
+
+
+def make_visualizer(cfg: Config):
+    """The visualizer ``cfg.visualizer_module`` names; raises
+    ``ValueError`` for a module it has no counterpart of."""
+    module = _lookup("visualizer_module", cfg.visualizer_module, VISUALIZERS)
+    return importlib.import_module(module).Visualizer(cfg)
 
 
 def make_network(cfg: Config,

@@ -18,6 +18,7 @@ API (all return np.ndarray, C-contiguous):
 - ``u8_to_unit(img)``        u8 -> f32 in [0, 1]
 - ``u8_to_pm1(img)``         u8 -> f32 in [-1, 1]
 - ``unit_to_pm1(img)``       f32 [0, 1] -> [-1, 1]
+- ``f32_unit_to_u8(img)``    f32 [0, 1] -> u8, clipped and truncated
 - ``u8_rgba_over_white(img)``  RGBA u8 -> RGB f32 over white
 - ``pfm_flip_downsample(payload, scale)``  bottom-up pfm -> top-down,
   fused nearest 1/scale downsample (DTU depth path)
@@ -95,6 +96,7 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.f32_scale_offset.argtypes = [f32p, f32p, st,
                                          ctypes.c_float, ctypes.c_float]
         lib.u8_rgba_over_white_f32.argtypes = [u8p, f32p, st]
+        lib.f32_unit_to_u8.argtypes = [f32p, u8p, st]
         lib.collate_f32.argtypes = [f32p, f32p, st, st]
         lib.pfm_flip_downsample_f32.argtypes = [f32p, f32p, st, st, st]
         lib.png_unfilter.argtypes = [u8p, u8p, st, st, st]
@@ -109,6 +111,7 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.jpeg_encode.restype = st
         for fn in (lib.u8_to_unit_f32, lib.u8_to_pm1_f32,
                    lib.f32_scale_offset, lib.u8_rgba_over_white_f32,
+                   lib.f32_unit_to_u8,
                    lib.collate_f32, lib.pfm_flip_downsample_f32):
             fn.restype = None
         _lib = lib
@@ -165,6 +168,19 @@ def u8_to_pm1(img: np.ndarray) -> np.ndarray:
 def unit_to_pm1(img: np.ndarray) -> np.ndarray:
     """[0,1] f32 image -> [-1,1] (the img*2-1 normalize), one pass."""
     return _scale_offset_f32(img, 2.0, -1.0)
+
+
+def f32_unit_to_u8(img: np.ndarray) -> np.ndarray:
+    """[0, 1] image -> u8, one pass: clipped to [0, 1], times 255,
+    truncated (the reference's ``(img * 255).astype(np.uint8)`` after a
+    clip), as ``enerf_tpu.native.f32_unit_to_u8``."""
+    lib = _load()
+    img = np.ascontiguousarray(img, dtype=np.float32)
+    if lib is None:
+        return (np.clip(img, 0.0, 1.0) * np.float32(255.0)).astype(np.uint8)
+    out = np.empty(img.shape, np.uint8)
+    lib.f32_unit_to_u8(_f32p(img), _u8p(out), img.size)
+    return out
 
 
 def u8_rgba_over_white(img: np.ndarray) -> np.ndarray:

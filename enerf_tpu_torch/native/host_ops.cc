@@ -29,6 +29,17 @@ void u8_to_pm1_f32(const uint8_t* src, float* dst, size_t n) {
   for (size_t i = 0; i < n; ++i) dst[i] = src[i] * k - 1.0f;
 }
 
+// float32 [0, 1] image -> u8 with clamp, one pass (the video frames and
+// the saved result images). Truncating, not rounding: the reference's
+// (img * 255).astype(uint8) after a clip, as enerf_tpu/native computes it.
+void f32_unit_to_u8(const float* src, uint8_t* dst, size_t n) {
+  for (size_t i = 0; i < n; ++i) {
+    float v = src[i];
+    v = v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
+    dst[i] = static_cast<uint8_t>(v * 255.0f);
+  }
+}
+
 // u8 HxWx4 RGBA -> f32 HxWx3 alpha-composited onto white in [0,1]
 // (NeRF-synthetic images; reference lib/datasets/nerf/enerf.py:127
 // img[...,:3]*img[...,-1:] + (1-img[...,-1:])), one fused pass.

@@ -4,6 +4,7 @@
     python -m enerf_tpu_torch.run --type dataset  --cfg_file ...  # loader smoke
     python -m enerf_tpu_torch.run --type network  --cfg_file ...  # timed forwards
     python -m enerf_tpu_torch.run --type evaluate --cfg_file ...  # metrics + FPS
+    python -m enerf_tpu_torch.run --type visualize --cfg_file ... # render video
 
 followed by ``key.subkey value`` overrides, as ``run.py`` takes them. It
 runs on the card unless ``--device cpu`` is given. The batches come from
@@ -11,15 +12,17 @@ runs on the card unless ``--device cpu`` is given. The batches come from
 ``build_model(cfg)`` with the newest checkpoint under
 ``cfg.trained_model_dir`` (without one it warns and keeps the seeded
 initialization, as ``run.py`` does), the metrics from
-``factory.make_evaluator(cfg)``.
+``factory.make_evaluator(cfg)``, the videos from
+``factory.make_visualizer(cfg)``.
 
 Frame time is the reference's method (run.py:62-76): each frame's forward
 timed on its own, the first frame excluded from the mean; on the card by
 CUDA events around the forward (the batch's upload timed apart), on the
 CPU by the host clock. Beside it: the loader's host time a batch (decode,
 PFM, rays and collation, in its worker), the time the loop waited for it,
-and the bytes uploaded a frame. ``--type visualize`` waits for the port's
-visualizer.
+and the bytes uploaded a frame; for ``--type visualize`` the host ms of
+the visualizer a frame (the copy to the host already made) and of the
+videos' encoding.
 """
 
 from __future__ import annotations
@@ -50,45 +53,51 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
-    args = parser.parse_args(argv)
-    if args.run_type == "visualize":
-        parser.error("--type visualize is not ported yet: it needs the "
-                     "port's visualizer (ROADMAP.md, Queue 1, item 8)")
-    return args
+    return parser.parse_args(argv)
 
 
-class _FrameTimer:
-    """The upload and forward time of each frame: CUDA events on the card,
-    the host clock on the CPU."""
+class DeviceClock:
+    """Marks on a device's clock: CUDA events on the card (read after a
+    synchronize), the host clock on the CPU."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.upload_ms: List[float] = []
-        self.frame_ms: List[float] = []
 
-    def _mark(self):
+    def mark(self):
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             return ev
         return time.perf_counter()
 
-    def _ms(self, a, b) -> float:
+    def ms(self, a, b) -> float:
         return a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
+
+    def sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+
+
+class _FrameTimer(DeviceClock):
+    """The upload and forward time of each frame."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self.upload_ms: List[float] = []
+        self.frame_ms: List[float] = []
 
     def run(self, model, batch_np: Dict):
         """Upload ``batch_np``'s device inputs, run ``model`` on them and
         wait for the device; returns (outputs, bytes uploaded)."""
-        t0 = self._mark()
+        t0 = self.mark()
         batch = device_batch(batch_np, next(model.parameters()).device)
-        t1 = self._mark()
+        t1 = self.mark()
         with torch.inference_mode():
             out = model(batch)
-        t2 = self._mark()
-        if self.cuda:
-            torch.cuda.synchronize()
-        self.upload_ms.append(self._ms(t0, t1))
-        self.frame_ms.append(self._ms(t1, t2))
+        t2 = self.mark()
+        self.sync()
+        self.upload_ms.append(self.ms(t0, t1))
+        self.frame_ms.append(self.ms(t1, t2))
         return out, sum(t.numel() * t.element_size() for t in batch.values())
 
 
@@ -109,11 +118,11 @@ def load_eval_model(cfg: Config, device) -> torch.nn.Module:
     return model.eval()
 
 
-def _frames(cfg: Config, device, evaluator=None) -> Dict:
-    """Every test batch through the model (and ``evaluator``): the
-    per-frame times, the FPS of their mean with the first frame excluded
-    (as the reference's run.py excludes it), and the first frame's batch
-    and outputs."""
+def _frames(cfg: Config, device, consume=None) -> Dict:
+    """Every test batch through the model (and ``consume(outputs,
+    batch)``, on the host copy of the outputs): the per-frame times, the
+    FPS of their mean with the first frame excluded (as the reference's
+    run.py excludes it), and the first frame's batch and outputs."""
     loader = make_data_loader(cfg, "test")
     model = load_eval_model(cfg, device)
     timer = _FrameTimer(device)
@@ -127,8 +136,8 @@ def _frames(cfg: Config, device, evaluator=None) -> Dict:
         out = {k: v.cpu().numpy() for k, v in out.items()}
         if first_batch is None:
             first_batch, first_out = batch_np, out
-        if evaluator is not None:
-            evaluator.evaluate(out, batch_np)
+        if consume is not None:
+            consume(out, batch_np)
         t = time.perf_counter()
     timed = timer.frame_ms[1:] or timer.frame_ms
     return {"frames": len(timer.frame_ms), "frame_ms": timer.frame_ms,
@@ -185,9 +194,33 @@ def run_evaluate(cfg: Config, device=None) -> Dict:
 
     device = resolve_device(device)
     evaluator = make_evaluator(cfg, device=device)
-    res = _frames(cfg, device, evaluator)
+    res = _frames(cfg, device, evaluator.evaluate)
     res["metrics"] = evaluator.summarize()
     _report(res)
+    return res
+
+
+def run_visualize(cfg: Config, device=None) -> Dict:
+    """Render the test path to ``color.mp4`` and ``depth.mp4`` (reference
+    run.py:79-103): each frame's outputs through the visualizer, then its
+    ``summarize`` (the encoding)."""
+    from enerf_tpu_torch.factory import make_visualizer
+
+    device = resolve_device(device)
+    visualizer = make_visualizer(cfg)
+    visualize_ms = []
+
+    def visualize(out, batch_np):
+        t0 = time.perf_counter()
+        visualizer.visualize(out, batch_np)
+        visualize_ms.append(1e3 * (time.perf_counter() - t0))
+
+    res = _frames(cfg, device, visualize)
+    res.update(visualize_ms=visualize_ms, **visualizer.summarize())
+    _report(res)
+    print(f"visualize host ms a frame (median): "
+          f"{statistics.median(visualize_ms):.2f}  encode host ms: "
+          f"{res['encode_ms']:.2f}")
     return res
 
 
@@ -195,11 +228,12 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     """Parse ``argv`` (default: the command line), run the ``--type``
     asked for, and return its result: the frame, upload and loader times,
     the metrics (``evaluate``), the model and the first frame's batch and
-    outputs."""
+    outputs; for ``visualize`` the visualizer's and the encoding's host
+    ms."""
     args = parse_args(argv)
     cfg = make_cfg(args.cfg_file, args.opts)
     run = {"dataset": run_dataset, "network": run_network,
-           "evaluate": run_evaluate}[args.run_type]
+           "evaluate": run_evaluate, "visualize": run_visualize}[args.run_type]
     return run(cfg, args.device)
 
 

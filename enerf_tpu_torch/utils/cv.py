@@ -268,15 +268,16 @@ def fill_poly(mask: np.ndarray, pts, value) -> np.ndarray:
     """``cv2.fillPoly(mask, [pts], value)`` in place (and returned): one
     polygon of integer vertices, no antialiasing (``LINE_8``), no shift.
     As OpenCV 5 fills: each edge is drawn as an 8-connected line clipped to
-    the image; an edge that leaves the image runs between its clipped end
-    points; then each row is filled from the ceiling of one fixed-point
-    crossing to the floor of the next, for the 1st and 2nd sorted
-    crossings, the 3rd and 4th, ..., clipped to the image. The crossings of
-    a closed polygon's edges on a row are even in number, so every edge
-    steps on every row: its crossing on row y is ``x0 + (y - y0) dx``.
-    Held against OpenCV, this equals it for polygons inside the image; for
-    one that crosses the image's border it can differ in the first and last
-    column (``tests/test_torch_jpeg.py``)."""
+    the image; an edge that leaves the image takes the x of its clipped end
+    points, and their y too unless clipping leaves them on one row (then
+    the edge keeps its rows and runs straight down at the clipped x); then
+    each row is filled from the ceiling of one fixed-point crossing to the
+    floor of the next, for the 1st and 2nd sorted crossings, the 3rd and
+    4th, ..., clipped to the image. The crossings of a closed polygon's
+    edges on a row are even in number, so every edge steps on every row:
+    its crossing on row y is ``x0 + (y - y0) dx``. Held against OpenCV, it
+    is exact for polygons inside, across and behind the image's border
+    (``tests/test_torch_jpeg.py``)."""
     pts = np.asarray(pts).reshape(-1, 2)
     # the vertices as OpenCV's Python binding passes them (int32)
     pts = np.clip(pts, np.iinfo(np.int32).min, np.iinfo(np.int32).max)
@@ -293,8 +294,8 @@ def fill_poly(mask: np.ndarray, pts, value) -> np.ndarray:
                 and 0 <= py1 < h):
             x0_, y0_, x1_, y1_, _ = _clip_line(w, h, t0x, py0, t1x, py1)
             if y0_ != y1_:
-                c0x, c0y = x0_ << _XY_SHIFT, y0_
-                c1x, c1y = x1_ << _XY_SHIFT, y1_
+                c0y, c1y = y0_, y1_
+            c0x, c1x = x0_ << _XY_SHIFT, x1_ << _XY_SHIFT
         if py0 != py1:
             dx = _div_trunc(c1x - c0x, c1y - c0y)
             if py0 < py1:

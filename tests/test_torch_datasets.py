@@ -131,9 +131,15 @@ def test_reference_dataset_paths_map_as_in_jax(ref, module):
 @pytest.mark.parametrize("module", [
     "enerf_tpu.datasets.zjumocap_interactive"])
 def test_unported_dataset_raises(module):
-    from enerf_tpu_torch.datasets.loader import make_dataset
+    """The last dataset the port lacked, the interactive ZJU-MoCap one,
+    maps to the port's module (``tests/test_torch_interactive.py`` holds
+    it against JAX's); a dataset module with no counterpart raises."""
+    from enerf_tpu_torch.datasets import zjumocap_interactive
+    from enerf_tpu_torch.datasets.loader import dataset_module, make_dataset
 
-    cfg = pconfig.make_cfg(opts=["test_dataset_module", module])
+    assert dataset_module(module) == zjumocap_interactive.__name__
+    cfg = pconfig.make_cfg(opts=["test_dataset_module",
+                                 "enerf_tpu.datasets.colmap_scene"])
     with pytest.raises(ValueError, match="not ported"):
         make_dataset(cfg, "test")
 

@@ -14,6 +14,7 @@ tolerances of ``tests/test_torch_enerf.py`` (rtol 1e-3, atol 3e-4 on rgb
 and weights, 3e-3 on depths and std); PSNR within 1e-3 dB and SSIM within
 1e-5 per level, LPIPS rtol 1e-4, on those outputs."""
 
+import os
 import types
 
 import cv2
@@ -165,9 +166,17 @@ def test_evaluators_match_jax(module, capsys):
             and ("acc_2" in printed) == (module == "evaluator"))
 
 
-def test_save_result_raises():
-    cfg = pconfig.replace(pconfig.Config(), save_result=True)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+def test_save_result_raises(tmp_path):
+    """``save_result`` is ported (``tests/test_torch_visualize.py`` holds
+    the PNGs to JAX's): the evaluator makes ``result_dir`` at init, and
+    raises there when it cannot, not after a frame's work."""
+    cfg = pconfig.replace(pconfig.Config(), save_result=True,
+                          workspace=str(tmp_path))
+    make_evaluator(cfg, device="cpu")
+    assert os.path.isdir(cfg.result_dir)
+    (tmp_path / "file").write_text("")
+    cfg = pconfig.replace(cfg, workspace=str(tmp_path / "file"))
+    with pytest.raises(OSError):
         make_evaluator(cfg, device="cpu")
 
 

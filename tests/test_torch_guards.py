@@ -1,8 +1,8 @@
 """Guards of the port's contract: it never imports JAX or the JAX package
-(nor PyYAML, OpenCV, imageio, Pillow or tqdm, which it does without),
-its entry points never drop to the CPU on their own, its kernel wrappers
-never fall back, and its own copies of the config and synthetic-data
-modules equal the JAX package's."""
+(nor PyYAML, OpenCV, imageio, Pillow, tqdm, glfw or OpenGL, which it does
+without), its entry points never drop to the CPU on their own, its kernel
+wrappers never fall back, and its own copies of the config and
+synthetic-data modules equal the JAX package's."""
 
 import ast
 import dataclasses
@@ -25,10 +25,10 @@ from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "enerf_tpu")
 # packages the port does without: nothing of it imports them
-UNNEEDED = ("yaml", "cv2", "imageio", "tqdm", "PIL")
+UNNEEDED = ("yaml", "cv2", "imageio", "tqdm", "PIL", "glfw", "OpenGL")
 # not loaded at all by the package's modules (torch.hub loads tqdm itself
 # where it is installed)
-LOADED_FORBIDDEN = ("yaml", "cv2", "imageio", "PIL")
+LOADED_FORBIDDEN = ("yaml", "cv2", "imageio", "PIL", "glfw", "OpenGL")
 
 
 def test_no_jax_import_in_subprocess():
@@ -79,6 +79,12 @@ def test_no_jax_import_in_subprocess():
         "import enerf_tpu_torch.datasets.enerf_outdoor_path\n"
         "import enerf_tpu_torch.utils.camera_io, enerf_tpu_torch.utils.ply\n"
         "import enerf_tpu_torch.train.__main__\n"
+        "import enerf_tpu_torch.gui_human, enerf_tpu_torch.utils.video\n"
+        "import enerf_tpu_torch.interactive.camera\n"
+        "import enerf_tpu_torch.interactive.render_options\n"
+        "import enerf_tpu_torch.eval.visualizer\n"
+        "import enerf_tpu_torch.eval.visualizer_interactive\n"
+        "import enerf_tpu_torch.datasets.zjumocap_interactive\n"
         "from enerf_tpu_torch.config import make_cfg\n"
         "make_cfg('configs/enerf/dtu_pretrain.yaml')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -115,7 +121,7 @@ def test_no_jax_import_in_sources():
             assert root not in UNNEEDED, (rel, name)
     smoke = (REPO / "chip_smoke.py").read_text()
     for phase in ("run_dtu", "jpeg", "run_zjumocap", "run_outdoor",
-                  "train_cli"):
+                  "train_cli", "interactive", "visualize"):
         assert f"def phase_{phase}" in smoke, phase
 
 
@@ -126,6 +132,25 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         enerf_tpu_torch.build_model(dtu_eval_config(), device="cuda")
     assert enerf_tpu_torch.build_model(dtu_eval_config(), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["gui_human", "run_visualize"])
+def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
+    """``python -m enerf_tpu_torch.gui_human --headless N`` and ``run
+    --type visualize`` without ``--device`` ask for the GPU and raise
+    without one, before they read or write a file."""
+    from enerf_tpu_torch import gui_human, run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opts = ["workspace", str(tmp_path / "absent")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "gui_human":
+            gui_human.main(["--headless", "2", *opts])
+        else:
+            run.main(["--type", "visualize", "--cfg_file", str(
+                REPO / "configs/enerf/enerf_outdoor/actor1_path.yaml"),
+                *opts])
+    assert not (tmp_path / "absent").exists()
 
 
 def test_kernel_loader_without_nvcc_raises(monkeypatch, tmp_path):

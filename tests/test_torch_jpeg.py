@@ -5,10 +5,8 @@ by imageio, and ``utils/cv.py`` (``undistort``, ``dilate``, ``fill_poly``,
 ``rodrigues``) and ``utils/camera_io.py`` against OpenCV.
 
 Tolerances: exact everywhere (the JPEG pixels bit for bit, the undistorted
-float and u8 images, the masks, the rotations, the camera files), but for
-``fill_poly`` of a polygon that crosses the image's border, which may
-differ from OpenCV 5 in the first and last column of the image
-(``utils/cv.py:fill_poly``)."""
+float and u8 images, the masks, ``fill_poly`` inside and across the
+image's border, the rotations, the camera files)."""
 
 import hashlib
 import io
@@ -228,11 +226,9 @@ def _box_faces(rng, H, W, depth):
 
 @pytest.mark.parametrize("where", ["inside", "crossing", "behind"])
 def test_fill_poly_matches_cv2(where):
-    """Box faces inside the image (exact), crossing its border, and with
-    corners behind the camera (very large coordinates): exact but for the
-    image's first and last column where a face crosses the border."""
+    """Box faces inside the image, crossing its border, and with corners
+    behind the camera (very large coordinates): exact in all three."""
     rng = np.random.RandomState({"inside": 0, "crossing": 1, "behind": 2}[where])
-    n_border = 0
     for _ in range(60):
         H, W = rng.randint(8, 60), rng.randint(8, 60)
         depth = {"inside": 8.0, "crossing": 2.0, "behind": 0.3}[where]
@@ -245,12 +241,35 @@ def test_fill_poly_matches_cv2(where):
             cv2.fillPoly(ref, [face], 1)
             got = pcv.fill_poly(np.zeros((H, W), np.uint8), face, 1)
             ys, xs = np.nonzero(got != ref)
-            if where == "inside":
-                assert ys.size == 0, face.tolist()
-            else:
-                assert np.isin(xs, [0, W - 1]).all(), face.tolist()
-                n_border += ys.size > 0
-    assert where == "inside" or n_border < 10
+            assert ys.size == 0, (face.tolist(), ys.tolist(), xs.tolist())
+
+
+def test_bound_2d_mask_across_border_matches_jax():
+    """``get_bound_2d_mask`` of boxes whose faces cross the image's border
+    (a subject at the frame's edge), against the JAX package's, which
+    calls ``cv2.fillPoly``: exact. The first box is the face on which the
+    border rule once differed (a clipped edge left on one row)."""
+    from enerf_tpu.utils import geometry as jgeo
+    from enerf_tpu_torch.utils import geometry as pgeo
+
+    H, W = 45, 38
+    K = np.array([[W * 0.8, 0, W / 2], [0, W * 0.8, H / 2], [0, 0, 1.0]])
+    rng = np.random.RandomState(3)
+    boxes = [np.array([[-1.901, -0.762, 1.024], [-0.696, 0.036, 2.976]])]
+    for _ in range(40):
+        c = np.array([rng.uniform(-1.5, 1.5), rng.uniform(-1.5, 1.5), 2.0])
+        half = rng.uniform(0.2, 1.0, 3)
+        boxes.append(np.stack([c - half, c + half]))
+    n_cross = 0
+    for box in boxes:
+        corners = pgeo.get_bound_corners(box)
+        uv = corners @ K.T
+        uv = uv[:, :2] / uv[:, 2:]
+        n_cross += bool(((uv < 0) | (uv >= [W, H])).any())
+        np.testing.assert_array_equal(
+            pgeo.get_bound_2d_mask(corners, K, H, W),
+            jgeo.get_bound_2d_mask(corners, K, H, W))
+    assert n_cross >= 20
 
 
 def test_rodrigues_matches_cv2():

@@ -21,6 +21,7 @@ import torch
 
 from enerf_tpu_torch.config import make_cfg
 from enerf_tpu_torch.run import main
+from enerf_tpu_torch.utils.video import read_mp4
 from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -36,8 +37,9 @@ def test_run_module_entry(tmp_path, capsys):
     """``python -m enerf_tpu_torch.run --type dataset`` iterates the test
     loader in a fresh interpreter (one torch thread, as a test worker's
     share) without importing JAX, a YAML package, OpenCV or imageio; and
-    ``--type visualize`` exits with a usage error naming what is
-    missing."""
+    ``--type visualize`` runs: a frame a test view into ``color.mp4`` and
+    ``depth.mp4`` (``tests/test_torch_visualize.py`` holds the videos and
+    the visualizer to JAX's)."""
     code = ("import runpy, sys\n"
             "sys.argv = ['run'] + sys.argv[1:]\n"
             "runpy.run_module('enerf_tpu_torch.run', run_name='__main__')\n"
@@ -50,9 +52,13 @@ def test_run_module_entry(tmp_path, capsys):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert "batches: 4" in res.stdout and "LOADED []" in res.stdout
-    with pytest.raises(SystemExit) as exc:
-        main(["--type", "visualize", "--device", "cpu"])
-    assert exc.value.code == 2 and "not ported yet" in capsys.readouterr().err
+    res = main(_argv("visualize", tmp_path))
+    assert res["frames"] == 4 == len(res["visualize_ms"])
+    assert "encode host ms" in capsys.readouterr().out
+    result_dir = Path(make_cfg(SMOKE, ["workspace", str(tmp_path)]).result_dir)
+    for name in ("color.mp4", "depth.mp4"):
+        frames, fps = read_mp4(str(result_dir / name))
+        assert len(frames) == 4 and frames[0].shape == (58, 78, 3)
 
 
 @pytest.fixture(scope="module")
