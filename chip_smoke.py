@@ -126,10 +126,19 @@ Phases, each printing one JSON line:
            at epoch 2, then 2 steps of actor1.yaml on the outdoor scene:
            step ms, loss, peak memory, K4 launched in training and the
            validation's kernels
+  ddp      the data-parallel path: ``python -m torch.distributed.run
+           --nproc_per_node 1 -m enerf_tpu_torch.train --distributed`` over
+           NCCL on the ZJU-MoCap scene (3 steps; its first loss vs the run
+           without --distributed, its checkpoint's keys), then 2 gloo ranks
+           on the one card: DDP steps of the train workload at 512x640 on
+           a global batch of 2 vs one process on it (loss, gradients,
+           running statistics; each rank's step ms and all-reduce share)
+           and the ray-split 512x640 DTU frame vs ``render`` (launches a
+           rank K1 2, K2 1, K4 2)
   profiler_lead  the lead-in records every profiler session lost
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
 path: frames, human, composite, val, run_dtu, run_zjumocap, run_outdoor,
-interactive, visualize, train, train_cli; its calls of a human, a
+interactive, visualize, train, train_cli, ddp; its calls of a human, a
 composite and a val frame in ``per_frame_by_path``), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Float32 throughout, TF32 off. A bound
@@ -2604,16 +2613,25 @@ print("TRAIN_CLI " + json.dumps(rec), flush=True)
 """
 
 
-def run_train_cli(args: list, timeout: int = 600) -> tuple:
-    """``TRAIN_RUNNER`` with ``args`` in a subprocess: (its record, its
+def run_train_cli(args: list, timeout: int = 600,
+                  nproc: int = 0) -> tuple:
+    """``TRAIN_RUNNER`` with ``args`` in a subprocess, or with ``nproc``
+    under ``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc`` (the runner written to build/train_runner.py): (its record, its
     stdout); fails on a non-zero exit."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-c", TRAIN_RUNNER]
+    if nproc:
+        runner = ROOT / "build" / "train_runner.py"
+        runner.parent.mkdir(parents=True, exist_ok=True)
+        runner.write_text(TRAIN_RUNNER)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(nproc), str(runner)]
     t0 = time.perf_counter()
-    sub = subprocess.run([sys.executable, "-c", TRAIN_RUNNER, *args],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=timeout)
+    sub = subprocess.run([*cmd, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
     secs = time.perf_counter() - t0
     line = next((ln for ln in sub.stdout.splitlines()
                  if ln.startswith("TRAIN_CLI ")), None)
@@ -2710,6 +2728,289 @@ def phase_train_cli(smi_line: str) -> dict:
     return launches
 
 
+# the ddp phase: the zjumocap_train.yaml run under torch.distributed.run
+# (world 1, NCCL) and its one-process reference, deterministic: one loader
+# worker (the dataset's rng is then drawn in order) and fix_random
+DDP_CLI_STEPS = 3
+DDP_TRAIN_STEPS = 4   # world-2 DDP steps at 512x640: the first held, 3 timed
+DDP_WORLD = 2
+# the ranks' BN running statistics vs one process's: the merged moments sum
+# in another order; the atol serves the means near 0 (8e-8 apart there)
+DDP_STATS_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def _zju_ddp_args(exp_name: str, steps: int) -> list:
+    fixture = ROOT / "build" / "video_fixture"
+    return ["--cfg_file", "configs/enerf/zjumocap/zjumocap_train.yaml",
+            "workspace", str(fixture), "exp_name", exp_name,
+            "train.epoch", "1", "ep_iter", str(steps), "eval_ep", "100",
+            "save_ep", "1", "train.num_workers", "1", "fix_random", "True",
+            "train_dataset.frames", "[0, -1, 1]",
+            "train_dataset.input_views", "[0, -1, 1]",
+            "train_dataset.render_views", "[0, -1, 1]"]
+
+
+def ddp_rank(dev, steps: int, hw: tuple) -> dict:
+    """One rank of the ddp phase's world-2 run over gloo, every rank on the
+    one card: ``steps`` DDP steps of ``tools/bench_train.py``'s workload
+    at ``hw`` (512x640), this rank on its half of a global batch of 2
+    (the first step's loss, clipped gradients and BN running statistics
+    kept; each step's ms, the host ms of its ``torch.distributed``
+    all-reduces (the synced BNs' and the stats', each timed after a
+    synchronize: gloo would block on the card's queue first), and DDP's
+    own gradient-communication and overlap times; K4's launches over the
+    steps), then the 512x640 DTU frame through
+    ``make_sharded_render_step`` (this rank's K1, K2 and K4 launches and
+    frame ms). Results as numpy."""
+    import torch
+    import torch.distributed as dist
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import dtu_eval_config
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+    from enerf_tpu_torch.parallel import local_batch_slice
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+    from enerf_tpu_torch.train.step import make_sharded_render_step, wrap_ddp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    marks = [("start", time.perf_counter())]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    coll_ms = []
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(*a, **kw):
+        # gloo blocks the host until the card has made the tensor: wait
+        # for that first, so that the time is the collective's own
+        sync()
+        t0 = time.perf_counter()
+        out = all_reduce(*a, **kw)
+        coll_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    h, w = hw
+    cfg = bench_train_config()
+    batch = make_synthetic_batch(cfg, H=h, W=w, split="train",
+                                 batch_size=DDP_WORLD)
+    part = local_batch_slice(DDP_WORLD)
+    local = et.device_batch({k: v[part] for k, v in batch.items()}, dev)
+    model = et.build_model(cfg, device=dev, seed=0, train=True)
+    state = create_train_state(cfg, model)
+    state.model = wrap_ddp(cfg, model)
+    step = make_train_step(cfg, (h, w))
+    rec = {"step_ms": [], "allreduce_host_ms": [], "loss": []}
+    sync()
+    marks.append(("build", time.perf_counter()))
+    reset_launches()
+    for i in range(steps):
+        coll_ms.clear()
+        t0 = time.perf_counter()
+        state, stats = step(state, local)
+        rec["loss"].append(float(stats["loss"]))
+        sync()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["allreduce_host_ms"].append(sum(coll_ms))
+        if i == 0:
+            rec["grads"] = {k: p.grad.detach().cpu().numpy()
+                            for k, p in model.named_parameters()
+                            if p.grad is not None}
+            rec["buffers"] = {k: b.detach().cpu().numpy().copy()
+                              for k, b in model.named_buffers()
+                              if k.endswith(("running_mean", "running_var"))}
+    rec["train_launches"] = read_launches()
+    ddp_stats = state.model._get_ddp_logging_data()
+    rec["ddp_logging"] = {k: ddp_stats.get(k) for k in (
+        "avg_forward_compute_time", "avg_backward_compute_time",
+        "avg_backward_comm_time", "avg_backward_compute_comm_overlap_time",
+        "comm_hook", "backend_name", "find_unused_parameters")}
+    del state, step, model, local
+    marks.append(("train", time.perf_counter()))
+
+    rcfg = dtu_eval_config()
+    rmodel = et.build_model(rcfg, device=dev, seed=0)
+    rbatch = make_synthetic_batch(rcfg, H=h, W=w)
+    render = make_sharded_render_step(rcfg, rmodel)
+    render(rbatch)                                    # warm-up
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = render(rbatch)
+    sync()
+    rec["frame_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["render_launches"] = read_launches()
+    rec["out"] = {k: v.cpu().numpy() for k, v in out.items()}
+    marks.append(("render", time.perf_counter()))
+    rec["seconds"] = {b: tb - ta for (_, ta), (b, tb) in zip(marks, marks[1:])}
+    dist.all_reduce = all_reduce
+    return rec
+
+
+def phase_ddp(torch, smi_line: str) -> dict:
+    """The data-parallel path (``enerf_tpu_torch.parallel``, the synced BN,
+    ``wrap_ddp``, the ray-split render, ``train --distributed``) on the
+    one card:
+
+    - world 1 over NCCL: ``python -m torch.distributed.run --standalone
+      --nproc_per_node 1 -m enerf_tpu_torch.train --distributed`` on
+      zjumocap_train.yaml over ``run_zjumocap``'s scene, 3 steps: step ms,
+      loss, peak memory, K4 launches, the checkpoint's keys (none with a
+      ``module.`` prefix); its first loss vs the same run without
+      ``--distributed`` (1 step, in this process, cuDNN's TF32 on as in
+      the CLI), rtol TRAIN_LOSS_RTOL;
+    - world 2 over gloo, both ranks on this card (NCCL takes one rank a
+      card): ``ddp_rank``'s DDP steps at 512x640 vs one process's step on
+      the batch of 2 (loss TRAIN_LOSS_RTOL, every gradient at cosine ≥
+      TRAIN_GRAD_COS, running statistics rtol 1e-4), each rank's step ms
+      and all-reduce share; then the ray-split DTU frame vs ``render`` in
+      this process (E2E tolerances) and each rank's launches (K1 2, K2 1,
+      K4 2).
+
+    Returns the phase's kernel launches, summed over its runs and ranks.
+    One card shows no multi-GPU speedup: two ranks share its SMs."""
+    import gc
+    import os
+    import shutil
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import dtu_eval_config, make_cfg
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+    from enerf_tpu_torch.parallel import spawn_ranks
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+    from enerf_tpu_torch.train.__main__ import main as train_main
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    args = _zju_ddp_args("zjumocap_ddp", DDP_CLI_STEPS)
+    model_dir = Path(make_cfg(args[1], args[2:]).trained_model_dir)
+    shutil.rmtree(model_dir, ignore_errors=True)
+    parts_s = {}
+    world1, _ = run_train_cli(["--distributed", *args], nproc=1)
+    parts_s["world1_cli"] = world1["seconds"]
+    if len(world1["step_ms"]) != DDP_CLI_STEPS or \
+            world1["train_launches"].get("depth_regression") != 2 * DDP_CLI_STEPS:
+        fail(f"ddp world 1: {world1}")
+    ckpt = torch.load(model_dir / "0.pth", map_location="cpu",
+                      weights_only=True)
+    keys = sorted(ckpt["net"])
+    if any(k.startswith("module.") for k in keys) or not any(
+            k.startswith("feature_net.") for k in keys):
+        fail(f"ddp world 1: checkpoint keys {keys[:5]}...")
+    # the same run without --distributed, one step, in this process under
+    # the CLI's own TF32 defaults (cuDNN's on)
+    ref_args = _zju_ddp_args("zjumocap_ddp_ref", 1)
+    shutil.rmtree(make_cfg(ref_args[1], ref_args[2:]).trained_model_dir,
+                  ignore_errors=True)
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            _, trainer, _ = train_main(ref_args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ref_loss = trainer.recorder.scalars["loss"].deque[0]
+    del trainer
+    parts_s["reference_cli"] = time.perf_counter() - t0
+    if abs(world1["loss"][0] - ref_loss) > TRAIN_LOSS_RTOL * abs(ref_loss):
+        fail(f"ddp world 1: first loss {world1['loss'][0]}, {ref_loss} "
+             f"without --distributed (rtol {TRAIN_LOSS_RTOL})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ddp_rank, DDP_WORLD, (DDP_TRAIN_STEPS, (H, W)),
+                        device="cuda:0", backend="gloo", timeout=600)
+    parts_s["world2_ranks"] = time.perf_counter() - t0
+    print(f"ddp: parts {parts_s}", file=sys.stderr, flush=True)
+    cfg = bench_train_config()
+    batch = make_synthetic_batch(cfg, H=H, W=W, split="train",
+                                 batch_size=DDP_WORLD)
+    model = et.build_model(cfg, seed=0, train=True)
+    _, stats = make_train_step(cfg, (H, W))(create_train_state(cfg, model),
+                                            batch)
+    loss_one = float(stats["loss"])
+    buffers = dict(model.named_buffers())
+    per_rank = []
+    for r, rec in enumerate(ranks):
+        if abs(rec["loss"][0] - loss_one) > TRAIN_LOSS_RTOL * abs(loss_one):
+            fail(f"ddp rank {r}: loss {rec['loss'][0]}, one process on the "
+                 f"batch of 2 {loss_one} (rtol {TRAIN_LOSS_RTOL})")
+        worst = (2.0, None)
+        for k, p in model.named_parameters():
+            g = p.grad.double().cpu().ravel() if p.grad is not None else None
+            if g is None or float(g.abs().max()) < 1e-7:
+                continue
+            if k not in rec["grads"]:
+                fail(f"ddp rank {r}: no gradient of {k}")
+            a = torch.from_numpy(rec["grads"][k]).double().ravel()
+            worst = min(worst, (float(a @ g / (a.norm() * g.norm())), k))
+        if worst[0] < TRAIN_GRAD_COS:
+            fail(f"ddp rank {r}: gradient of {worst[1]} at cosine {worst[0]} "
+                 f"vs one process (limit {TRAIN_GRAD_COS})")
+        for k, v in rec["buffers"].items():
+            max_err(torch, torch.from_numpy(v), buffers[k].cpu(),
+                    DDP_STATS_TOL["rtol"], DDP_STATS_TOL["atol"],
+                    f"ddp rank {r} {k} vs one process")
+        if rec["train_launches"]["depth_regression"] != 2 * DDP_TRAIN_STEPS:
+            fail(f"ddp rank {r}: train launches {rec['train_launches']}")
+        if rec["render_launches"] != {"cost_volume": 2, "render": 1,
+                                      "render_l0": 0, "depth_regression": 2}:
+            fail(f"ddp rank {r}: ray-split frame launches "
+                 f"{rec['render_launches']}")
+        timed = rec["step_ms"][1:]
+        # DDP's gradient all-reduce where the backward does not hide it
+        log = rec["ddp_logging"]
+        comm = ((log.get("avg_backward_comm_time") or 0)
+                - (log.get("avg_backward_compute_comm_overlap_time") or 0)) / 1e6
+        per_rank.append({
+            "rank": r, "loss": rec["loss"], "step_ms": rec["step_ms"],
+            "median_step_ms": statistics.median(timed),
+            "allreduce_host_ms": rec["allreduce_host_ms"],
+            "ddp_logging": rec["ddp_logging"],
+            "allreduce_share": (statistics.median(rec["allreduce_host_ms"][1:])
+                                + comm) / statistics.median(timed),
+            "worst_grad_cosine": worst[0], "worst_grad_param": worst[1],
+            "train_launches": rec["train_launches"],
+            "frame_ms": rec["frame_ms"], "seconds": rec["seconds"],
+            "render_launches": rec["render_launches"]})
+    del model, stats
+    rcfg = dtu_eval_config()
+    ref = et.render(et.build_model(rcfg, seed=0),
+                    make_synthetic_batch(rcfg, H=H, W=W))
+    err = {}
+    for r, rec in enumerate(ranks):
+        if set(rec["out"]) != set(ref):
+            fail(f"ddp rank {r}: ray-split outputs {sorted(rec['out'])}")
+        for k, v in rec["out"].items():
+            err[f"rank{r}_{k}"] = max_err(
+                torch, torch.from_numpy(v).cuda(), ref[k], E2E_RTOL,
+                E2E_ATOL[k], f"ddp rank {r} ray-split {k} vs render")
+    launches = {k: world1["train_launches"].get(k, 0)
+                + sum(rec["train_launches"][k] + rec["render_launches"][k]
+                      for rec in ranks)
+                for k in ("cost_volume", "render", "render_l0",
+                          "depth_regression")}
+    emit("ddp", world1_nccl={
+             "steps": DDP_CLI_STEPS, "step_ms": world1["step_ms"],
+             "loss": world1["loss"], "loss_without_distributed": ref_loss,
+             "peak_mem_gib": world1["peak_mem_gib"],
+             "train_launches": world1["train_launches"],
+             "checkpoint_keys": len(keys), "checkpoint_key_sample": keys[:3],
+             "seconds": world1["seconds"]},
+         world2_gloo={"H": H, "W": W, "global_batch": DDP_WORLD,
+                      "steps": DDP_TRAIN_STEPS, "loss_one_process": loss_one,
+                      "ranks": per_rank, "ray_split_max_abs_err": err},
+         launches=launches, seconds=time.perf_counter() - t_phase,
+         parts_seconds=parts_s,
+         cpu_threads=os.cpu_count(), nvidia_smi=smi_line)
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "enerf_tpu_torch" / "__init__.py").is_file():
         fail(f"no enerf_tpu_torch package next to {Path(__file__).name}: run "
@@ -2753,6 +3054,7 @@ def main() -> None:
                    lambda: step(state, train_batch), 2, "step")
     del state, step, train_batch
     paths["train_cli"] = phase_train_cli(smi_line)
+    paths["ddp"] = phase_ddp(torch, smi_line)
     emit("profiler_lead", lead_launches=LEAD_LAUNCHES,
          sessions=len(LEAD_LOST), max_lost=max(n for _, n in LEAD_LOST),
          sessions_with_loss=sum(n > 0 for _, n in LEAD_LOST),

@@ -67,12 +67,14 @@ def build_model(cfg, device=None, seed: int = 0, train: bool = False
 
 
 @torch.inference_mode()
-def render(model: ENeRF, batch: Mapping, stage_hook=None) -> Dict[str, torch.Tensor]:
+def render(model: ENeRF, batch: Mapping, stage_hook=None, **kwargs
+           ) -> Dict[str, torch.Tensor]:
     """Render one batch with ``model`` on the model's device; only the
     batch's device inputs are uploaded (``device_batch``: the host-only
-    ground truth ``tar_img``, ``tar_dpt``, ``tar_mask`` stays)."""
+    ground truth ``tar_img``, ``tar_dpt``, ``tar_mask`` stays).
+    ``kwargs`` go to the model's forward (``ray_slice``)."""
     dev = next(model.parameters()).device
-    return model(device_batch(batch, dev), stage_hook=stage_hook)
+    return model(device_batch(batch, dev), stage_hook=stage_hook, **kwargs)
 
 
 __all__ = ["build_model", "render", "resolve_device", "device_batch",

@@ -198,9 +198,10 @@ class Config:
 # ---------------------------------------------------------------------------
 
 # Keys of the JAX package's config that tune its TPU kernels and mesh. The
-# port runs its CUDA kernels unconditionally on the card and has no mesh in
-# this slice, so a YAML that sets them (written for either package) loads
-# with them dropped rather than failing.
+# port runs its CUDA kernels unconditionally on the card, and its data
+# parallelism takes the world size of the launcher (``torch.distributed.run``,
+# ``enerf_tpu_torch/parallel``) in place of a mesh, so a YAML that sets them
+# (written for either package) loads with them dropped rather than failing.
 _TPU_ONLY_KEYS = {
     "fused_render", "fused_gather_blend", "fused_volume", "gather_bf16",
     "fused_fast_const", "use_pallas", "train_packed_render",
@@ -509,6 +510,12 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
     tree["exp_name"] = exp_name
     # the reference's actor1.yaml puts num_fg_layers at top level; it
     # belongs to the enerf block
+    dtype = tree.get("compute_dtype", "float32")
+    if dtype != "float32":
+        raise ValueError(
+            f"compute_dtype {dtype!r}: the port computes in float32 only; "
+            "the bf16 compute mode is still to be ported (ROADMAP.md, "
+            "Queue 1, item 4)")
     if "num_fg_layers" in tree:
         enerf_tree = dict(tree.get("enerf", {}))
         enerf_tree["num_fg_layers"] = tree.pop("num_fg_layers")

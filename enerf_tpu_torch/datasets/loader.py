@@ -252,6 +252,16 @@ def make_data_loader(cfg: Config, split: str,
                      max_iter: Optional[int] = None,
                      process_index: int = 0, process_count: int = 1
                      ) -> DataLoader:
+    """The loader of ``split``: ``cfg.ep_iter`` batches an epoch in
+    training, one pass over the test set otherwise.
+
+    ``process_index`` / ``process_count``: the rank and world size of a
+    data-parallel run. Every rank walks the same epoch-seeded permutation
+    and keeps every ``process_count``-th sample from ``process_index`` on
+    (the reference's DistributedSampler stride), so the ranks' samples are
+    disjoint; each rank's batch takes the view count drawn for its own
+    first sample, so ranks may train one step on different view counts,
+    as the JAX package's hosts do (``enerf_tpu/datasets/loader.py:127``)."""
     dataset = make_dataset(cfg, split)
     is_train = split == "train"
     ds_cfg = cfg.train_dataset if is_train else cfg.test_dataset

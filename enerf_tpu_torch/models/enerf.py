@@ -17,11 +17,18 @@ statistics and updates its running statistics every forward. Grid rays
 are used on a level when ``grid_rays`` and, in training, ``train_img``
 of that level; otherwise the rays' bounds and volume features are
 gathered at their pixels.
+
+``ray_slice=(rank, world)`` renders one rank's share of a frame split over
+the ranks of a data-parallel run (``train/step.py:
+make_sharded_render_step``): the rank shades the contiguous rank-th of
+world equal parts of each rendered level's rays (as gathered rays, which
+the render kernel takes as grid rays are taken) and leaves zeros in the
+per-ray outputs ``RAY_OUTPUTS`` of every other ray.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,11 +50,16 @@ from enerf_tpu_torch.ops.kernels.render import render_rays, render_rays_plain
 from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 from enerf_tpu_torch.ops.sampling import resize_bilinear, scale_size
 from enerf_tpu_torch.ops.warp import build_cost_volume
+from enerf_tpu_torch.parallel.dist import local_batch_slice
 
 # FPN output channels by feature level (level_0 = 1/4 res, level_2 = full)
 FEAT_CH = {0: 32, 1: 16, 2: 8}
 
 StageHook = Optional[Callable[[str], None]]
+# (rank, world): this rank's share of every rendered level's rays
+RaySlice = Optional[Tuple[int, int]]
+# the outputs of ``render_level``, one value (or row) a ray
+RAY_OUTPUTS = ("rgb", "depth", "weights")
 
 
 class ENeRF(nn.Module):
@@ -73,11 +85,13 @@ class ENeRF(nn.Module):
         return fpn_features(self.feature_net, src_inps)
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                stage_hook: StageHook = None) -> Dict[str, torch.Tensor]:
+                stage_hook: StageHook = None, ray_slice: RaySlice = None
+                ) -> Dict[str, torch.Tensor]:
         """Forward of the whole cascade. ``stage_hook(name)``, when given,
         is called right after each stage is enqueued (``feature_net``,
         ``cost_volume_{i}``, ``cost_reg_{i}``, ``depth_{i}``,
-        ``render_{i}``) — a timer records a CUDA event there."""
+        ``render_{i}``) — a timer records a CUDA event there.
+        ``ray_slice``: see the module's docstring."""
         hook = stage_hook or (lambda name: None)
         cas = self.cfg.cas_config
         feats = self.forward_feat(batch["src_inps"])
@@ -117,7 +131,8 @@ class ENeRF(nn.Module):
             if not cas.render_if[i]:
                 continue
             ret_i = self._render_stage(i, depth, std, near_far, feat_volume,
-                                       feats, batch, view_mask)
+                                       feats, batch, view_mask,
+                                       ray_slice=ray_slice)
             hook(f"render_{i}")
             ret_i["depth_mvs"] = (1.0 / depth) if cas.depth_inv[i] else depth
             ret_i["std"] = std
@@ -125,7 +140,8 @@ class ENeRF(nn.Module):
         return ret
 
     def _render_stage(self, level, depth, std, near_far, feat_volume, feats,
-                      batch, view_mask) -> Dict[str, torch.Tensor]:
+                      batch, view_mask, ray_slice: RaySlice = None
+                      ) -> Dict[str, torch.Tensor]:
         """Depth-guided rays, then IBR shading + compositing of one level:
         the variant hook (``ENeRFHuman`` renders its masked rays here)."""
         cas = self.cfg.cas_config
@@ -133,7 +149,7 @@ class ENeRF(nn.Module):
                                        or not self.training)
         rays = self.build_level_rays(level, depth, std, near_far, batch, grid)
         return self.render_level(level, rays, feat_volume, feats, batch,
-                                 view_mask, grid=grid)
+                                 view_mask, grid=grid, ray_slice=ray_slice)
 
     def build_level_rays(self, level, depth, std, near_far, batch, grid):
         """The batch's host-built rays of ``level`` with their depth-guided
@@ -145,11 +161,28 @@ class ENeRF(nn.Module):
                           grid=grid)
 
     def render_level(self, level, rays, feat_volume, feats, batch, view_mask,
-                     grid: bool, window=None) -> Dict[str, torch.Tensor]:
+                     grid: bool, window=None, ray_slice: RaySlice = None
+                     ) -> Dict[str, torch.Tensor]:
         """Shade and composite ``rays`` (B, N, 12) of one level. ``grid``:
         the rays are the raster grid of the render frame or, with
         ``window`` (an ``ops.window.Window`` of the render frame), of that
-        window."""
+        window. ``ray_slice=(rank, world)``: only the rank's contiguous
+        N/world rays, the other rays' outputs 0; N not divisible by world
+        raises ``ValueError``."""
+        if ray_slice is not None:
+            B, N = rays.shape[:2]
+            r, world = ray_slice
+            if N % world:
+                raise ValueError(f"the {N} rays of level {level} do not split "
+                                 f"over {world} ranks")
+            part = local_batch_slice(N, r, world)
+            out = self.render_level(level, rays[:, part], feat_volume, feats,
+                                    batch, view_mask, grid=False)
+            full = {}
+            for k, v in out.items():
+                full[k] = v.new_zeros((B, N) + v.shape[2:])
+                full[k][:, part] = v
+            return full
         cas = self.cfg.cas_config
         world_xyz, uvd, z_vals = sample_along_depth(
             rays, n_samples=cas.num_samples[level],

@@ -36,27 +36,33 @@ WINDOW_SNAP = 16
 
 class ENeRFHuman(ENeRF):
     def _render_stage(self, level, depth, std, near_far, feat_volume, feats,
-                      batch, view_mask) -> Dict[str, torch.Tensor]:
+                      batch, view_mask, ray_slice=None
+                      ) -> Dict[str, torch.Tensor]:
+        """As ``ENeRF``'s; ``ray_slice`` splits the rays each mode renders
+        (the window's, all of them, or the first K)."""
         cas = self.cfg.cas_config
         if not ("mask_at_box" in batch and not self.training
                 and level == cas.num - 1):
             return super()._render_stage(level, depth, std, near_far,
-                                         feat_volume, feats, batch, view_mask)
+                                         feat_volume, feats, batch, view_mask,
+                                         ray_slice=ray_slice)
         grid = self.cfg.grid_rays
         rays = self.build_level_rays(level, depth, std, near_far, batch, grid)
         B, N = rays.shape[:2]
         mask = batch["mask_at_box"].reshape(B, N)
         args = (level, feat_volume, feats, batch, view_mask)
         if self.cfg.mask_window_hw is not None and grid:
-            return self._render_window(rays, mask, *args)
+            return self._render_window(rays, mask, *args, ray_slice=ray_slice)
         if self.cfg.mask_ray_capacity >= 1.0:
-            out = self.render_level(level, rays, *args[1:], grid=grid)
+            out = self.render_level(level, rays, *args[1:], grid=grid,
+                                    ray_slice=ray_slice)
             out["rgb"] = out["rgb"] * mask[..., None]
             return out
-        return self._render_capacity(rays, mask, *args)
+        return self._render_capacity(rays, mask, *args, ray_slice=ray_slice)
 
     def _render_capacity(self, rays, mask, level, feat_volume, feats, batch,
-                         view_mask) -> Dict[str, torch.Tensor]:
+                         view_mask, ray_slice=None
+                         ) -> Dict[str, torch.Tensor]:
         """The first ``mask_ray_capacity``·N rays of a stable argsort that
         puts the masked ones first, rendered and scattered into zeros."""
         B, N = rays.shape[:2]
@@ -66,7 +72,7 @@ class ENeRFHuman(ENeRF):
         valid = torch.take_along_dim(mask, idx, dim=1)
         # the rays are no longer in raster order: gathered vox sampling
         out = self.render_level(level, sub_rays, feat_volume, feats, batch,
-                                view_mask, grid=False)
+                                view_mask, grid=False, ray_slice=ray_slice)
         scattered = {}
         for k, v in out.items():
             tail = (1,) * (v.ndim - 2)
@@ -77,7 +83,7 @@ class ENeRFHuman(ENeRF):
         return scattered
 
     def _render_window(self, rays, mask, level, feat_volume, feats, batch,
-                       view_mask) -> Dict[str, torch.Tensor]:
+                       view_mask, ray_slice=None) -> Dict[str, torch.Tensor]:
         """The static (h, w) window on the mask, rendered as a raster
         sub-grid and written back into a zero frame."""
         B, N = rays.shape[:2]
@@ -99,7 +105,7 @@ class ENeRFHuman(ENeRF):
         rays_win = win.crop(rays.reshape(B, H, W, -1))
         out = self.render_level(level, rays_win.reshape(B, wh * ww, -1),
                                 feat_volume, feats, batch, view_mask,
-                                grid=True, window=win)
+                                grid=True, window=win, ray_slice=ray_slice)
         scattered = {}
         for k, v in out.items():
             tail = v.shape[2:]

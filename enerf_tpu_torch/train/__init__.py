@@ -1,5 +1,5 @@
-"""Training of the port's ENeRF on one GPU; counterpart of
-``enerf_tpu/train``."""
+"""Training of the port's ENeRF on one GPU, or data-parallel on several
+(``step.wrap_ddp``); counterpart of ``enerf_tpu/train``."""
 
 from enerf_tpu_torch.train.checkpoint import (
     load_model,

@@ -3,9 +3,10 @@
 
     python -m enerf_tpu_torch.train --cfg_file configs/enerf/dtu_pretrain.yaml [key value ...]
     python -m enerf_tpu_torch.train --test --cfg_file ...    # evaluate instead
+    python -m torch.distributed.run --nproc_per_node N \
+        -m enerf_tpu_torch.train --distributed --cfg_file ...
 
-It trains on the card unless ``--device cpu`` is given, one GPU:
-``--distributed`` (multi-GPU data parallelism) is refused. In order: the
+It trains on the card unless ``--device cpu`` is given. In order: the
 train loader (``cfg.ep_iter`` batches an epoch), the network
 ``cfg.network_module`` names, a warm start from ``cfg.pretrain``, the
 train state and a resume from ``cfg.trained_model_dir``, the command line
@@ -16,6 +17,14 @@ and ``Trainer``; then the epoch loop, saving a checkpoint every
 ``eval_ep`` epochs with ``Trainer.val`` and the evaluator the config
 names. ``--test`` runs ``enerf_tpu_torch.run.run_evaluate``;
 ``debug_nans`` turns on ``torch.autograd.set_detect_anomaly``.
+
+``--distributed``: one process a GPU under ``torch.distributed.run``
+(NCCL; gloo with ``--device cpu``), each rank on ``cuda:{LOCAL_RANK}``
+and on its shard of the train set, the model's BNs synced and the model
+in ``DistributedDataParallel`` (``train/step.py:wrap_ddp``). Every rank
+loads the pretrained weights and the resume before the wrap; rank 0 alone
+prints, writes the config, the checkpoints and the record, and validates,
+while the others wait. Without the launcher's environment it exits 2.
 """
 
 from __future__ import annotations
@@ -31,6 +40,14 @@ import torch
 from enerf_tpu_torch import build_model, resolve_device
 from enerf_tpu_torch.config import Config, make_cfg
 from enerf_tpu_torch.datasets.loader import make_data_loader
+from enerf_tpu_torch.parallel.dist import (
+    LAUNCHER_ENV,
+    barrier,
+    init_distributed,
+    is_main,
+    rank,
+    world_size,
+)
 from enerf_tpu_torch.train import (
     Trainer,
     create_train_state,
@@ -41,10 +58,12 @@ from enerf_tpu_torch.train import (
     save_model,
     save_trained_config,
 )
+from enerf_tpu_torch.train.step import wrap_ddp
 
-DISTRIBUTED_REFUSED = (
-    "--distributed: multi-GPU training is not ported yet (ROADMAP.md, "
-    "Queue 1, item 6); run without it to train on one GPU")
+NO_LAUNCHER = (
+    "--distributed needs the environment of torch.distributed.run "
+    "({} unset): python -m torch.distributed.run --nproc_per_node N "
+    "-m enerf_tpu_torch.train --distributed --cfg_file ...")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -56,47 +75,64 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         default="configs/enerf/dtu_pretrain.yaml")
     parser.add_argument("--test", action="store_true")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-GPU training (not ported: refused)")
+                        help="data-parallel training, one process a GPU "
+                             "under torch.distributed.run")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU)")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
     if args.distributed:
-        parser.exit(2, f"{parser.prog}: error: {DISTRIBUTED_REFUSED}\n")
+        missing = [k for k in LAUNCHER_ENV if k not in os.environ]
+        if missing:
+            parser.exit(2, f"{parser.prog}: error: "
+                        f"{NO_LAUNCHER.format(', '.join(missing))}\n")
+        if args.test:
+            parser.exit(2, f"{parser.prog}: error: --test evaluates on one "
+                        "device; run it without --distributed\n")
     return args
 
 
-def train(cfg: Config, device=None, argv: Optional[List[str]] = None):
-    """The training run of ``train.py:train`` on one device; returns the
-    final train state, the ``Trainer`` and the metrics of each
-    validation."""
+def train(cfg: Config, device=None, argv: Optional[List[str]] = None,
+          distributed: bool = False):
+    """The training run of ``train.py:train``; returns the final train
+    state, the ``Trainer`` and the metrics of each validation (none on a
+    rank other than 0). ``distributed``: this process is a rank of the
+    process group that ``init_distributed`` joined, ``device`` its
+    device."""
     device = resolve_device(device)
+    main_rank = is_main()
+    say = print if main_rank else (lambda *a, **k: None)
     if cfg.fix_random:
         np.random.seed(0)
-    train_loader = make_data_loader(cfg, "train", max_iter=cfg.ep_iter)
+    train_loader = make_data_loader(cfg, "train", max_iter=cfg.ep_iter,
+                                    process_index=rank(),
+                                    process_count=world_size())
     sample = train_loader.dataset[(0, int(cfg.train.input_views_num[0]))]
     src_hw = tuple(sample["src_inps"].shape[1:3])
 
     seed = 0 if cfg.fix_random else int.from_bytes(os.urandom(4), "little")
     model = build_model(cfg, device=device, seed=seed, train=True)
     if load_pretrain(cfg, model):
-        print(f"loaded pretrained weights of {cfg.pretrain}")
+        say(f"loaded pretrained weights of {cfg.pretrain}")
     elif cfg.pretrain:
-        print(f"NOTICE: no pretrained checkpoint of {cfg.pretrain!r} under "
-              f"{os.path.join(cfg.workspace, 'trained_model', cfg.task)}; "
-              "training from the seeded random init")
+        say(f"NOTICE: no pretrained checkpoint of {cfg.pretrain!r} under "
+            f"{os.path.join(cfg.workspace, 'trained_model', cfg.task)}; "
+            "training from the seeded random init")
     state = create_train_state(cfg, model)
     trainer = Trainer(cfg, train_step=None)
     begin_epoch = load_model(cfg.trained_model_dir, state,
                              recorder=trainer.recorder, resume=cfg.resume)
     if begin_epoch:
-        print(f"resumed at epoch {begin_epoch} from {cfg.trained_model_dir}")
-    save_trained_config(cfg, argv)
+        say(f"resumed at epoch {begin_epoch} from {cfg.trained_model_dir}")
+    if distributed:
+        state.model = wrap_ddp(cfg, model)
+    if main_rank:
+        save_trained_config(cfg, argv)
 
     vgg = load_vgg16_params(device=device)
     if vgg is None and any(cfg.enerf.cas_config.train_img):
-        print("WARNING: vgg16 weights missing (data/vgg16_features.npz) — "
-              "perceptual loss disabled, training with MSE only")
+        say("WARNING: vgg16 weights missing (data/vgg16_features.npz) — "
+            "perceptual loss disabled, training with MSE only")
     trainer.train_step = make_train_step(cfg, src_hw, vgg_params=vgg)
     vals = []
 
@@ -105,14 +141,18 @@ def train(cfg: Config, device=None, argv: Optional[List[str]] = None):
         state = trainer.train_epoch(epoch, state, train_loader)
         if (epoch + 1) % cfg.save_ep == 0 or \
                 (epoch + 1) % cfg.save_latest_ep == 0:
-            save_model(cfg.trained_model_dir, state, epoch,
-                       recorder=trainer.recorder)
+            if main_rank:
+                save_model(cfg.trained_model_dir, state, epoch,
+                           recorder=trainer.recorder)
+            barrier()
         if (epoch + 1) % cfg.eval_ep == 0:
-            from enerf_tpu_torch.factory import make_evaluator
+            if main_rank:
+                from enerf_tpu_torch.factory import make_evaluator
 
-            vals.append(trainer.val(epoch, state,
-                                    make_data_loader(cfg, "test"),
-                                    make_evaluator(cfg, device=device)))
+                vals.append(trainer.val(epoch, state,
+                                        make_data_loader(cfg, "test"),
+                                        make_evaluator(cfg, device=device)))
+            barrier()
     return state, trainer, vals
 
 
@@ -129,7 +169,13 @@ def main(argv: Optional[List[str]] = None):
         return run_evaluate(cfg, args.device)
     cmd = [sys.argv[0] if argv is None else "python -m enerf_tpu_torch.train",
            *(sys.argv[1:] if argv is None else argv)]
-    return train(cfg, args.device, cmd)
+    if not args.distributed:
+        return train(cfg, args.device, cmd)
+    device = init_distributed(args.device)
+    try:
+        return train(cfg, device, cmd, distributed=True)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

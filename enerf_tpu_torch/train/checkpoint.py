@@ -7,6 +7,11 @@ epoch}`` as ``{epoch}.pth`` or ``latest.pth`` in the model directory
 files are kept. Files are read with ``torch.load(weights_only=True)``.
 ``save_trained_config`` writes the command line and the resolved config
 beside them (``config/train_cmd.txt``, ``config/train_config.yaml``).
+The net is the module's own ``state_dict`` also when it trains inside
+``DistributedDataParallel`` (no ``module.`` prefix): the keys stay
+``feature_net.*`` / ``cost_reg_{i}.*`` / ``nerf_{i}.*``, the reference's.
+In a data-parallel run rank 0 writes; a resume loads on every rank,
+before the DDP wrap.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from torch import nn
 
 from enerf_tpu_torch.config import Config, asdict, dump_yaml
+from enerf_tpu_torch.parallel.dist import unwrap
 from enerf_tpu_torch.train.state import TrainState
 
 KEEP = 5
@@ -57,7 +63,7 @@ def save_model(model_dir: str, state: TrainState, epoch: int,
     ``KEEP``. Returns the path written."""
     os.makedirs(model_dir, exist_ok=True)
     payload = {
-        "net": state.model.state_dict(),
+        "net": unwrap(state.model).state_dict(),
         "optim": state.optimizer.state_dict(),
         "scheduler": state.scheduler.state_dict(),
         "recorder": recorder.state_dict() if recorder is not None else {},
@@ -79,7 +85,7 @@ def load_model(model_dir: str, state: TrainState, recorder=None,
     if path is None:
         return 0
     ckpt = _load(path)
-    state.model.load_state_dict(ckpt["net"])
+    unwrap(state.model).load_state_dict(ckpt["net"])
     state.optimizer.load_state_dict(ckpt["optim"])
     state.scheduler.load_state_dict(ckpt["scheduler"])
     if recorder is not None:

@@ -1,6 +1,7 @@
 """Metrics recorder; counterpart of ``enerf_tpu/train/recorder.py``
 (reference ``lib/train/recorder.py``): window-smoothed scalars and a JSONL
-log, ``scalars.jsonl`` under ``cfg.record_dir``.
+log, ``scalars.jsonl`` under ``cfg.record_dir``. In a data-parallel run
+only rank 0 touches the log.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict
 import numpy as np
 
 from enerf_tpu_torch.config import Config
+from enerf_tpu_torch.parallel.dist import is_main
 
 
 class SmoothedValue:
@@ -48,18 +50,22 @@ class Recorder:
         self.step = 0
         self.scalars: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
         self.record_dir = cfg.record_dir
+        self.path = os.path.join(self.record_dir, "scalars.jsonl")
+        if not is_main():
+            return
         if not resume and os.path.exists(self.record_dir):
             # a fresh run starts a fresh log (reference recorder.py:53-55)
             shutil.rmtree(self.record_dir, ignore_errors=True)
         os.makedirs(self.record_dir, exist_ok=True)
-        self.path = os.path.join(self.record_dir, "scalars.jsonl")
 
     def update(self, stats: Dict[str, float]) -> None:
         for k, v in stats.items():
             self.scalars[k].update(float(v))
 
     def record(self, prefix: str = "train") -> None:
-        """Append the windowed medians as one JSON line."""
+        """Append the windowed medians as one JSON line (rank 0 only)."""
+        if not is_main():
+            return
         payload = {f"{prefix}/{k}": v.median for k, v in self.scalars.items()}
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": self.step, **payload}) + "\n")

@@ -1,6 +1,8 @@
 """Trainer loop; counterpart of ``enerf_tpu/train/trainer.py`` (reference
 ``lib/train/trainers/trainer.py:44-127``): the epoch loop over an iterable
 of batches with the eta / lr console line, and validation over another.
+In a data-parallel run only rank 0 prints and records
+(``enerf_tpu/train/trainer.py:68,75,102``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from enerf_tpu_torch import render
 from enerf_tpu_torch.config import Config
+from enerf_tpu_torch.parallel.dist import is_main, unwrap
 from enerf_tpu_torch.train.recorder import Recorder
 from enerf_tpu_torch.train.schedule import make_lr_schedule
 from enerf_tpu_torch.train.state import TrainState
@@ -54,7 +57,7 @@ class Trainer:
             self.recorder.step += 1
             self.recorder.update({**stats, "data_time": data_time,
                                   "batch_time": batch_time})
-            if it % cfg.log_interval == 0:
+            if it % cfg.log_interval == 0 and is_main():
                 step = state.step
                 remaining = (cfg.train.epoch - epoch) * cfg.ep_iter - it
                 eta = datetime.timedelta(seconds=int(batch_time * remaining))
@@ -69,12 +72,14 @@ class Trainer:
             evaluator=None) -> Dict[str, float]:
         """The per-level color MSE and PSNR over ``loader``'s batches, in
         eval mode, with ``evaluator``'s metrics when one is given (reference
-        trainer.py:95-127)."""
+        trainer.py:95-127). In a data-parallel run rank 0 calls it alone,
+        on the module inside DDP: eval-mode BN makes no collective."""
         stats_acc: Dict[str, list] = {}
-        state.model.eval()
+        model = unwrap(state.model)
+        model.eval()
         for batch in loader:
             out = {k: v.cpu().numpy() for k, v in
-                   render(state.model, batch).items()}
+                   render(model, batch).items()}
             for i in range(self.cfg.enerf.cas_config.num):
                 pred, gt = out.get(f"rgb_level{i}"), batch.get(f"rgb_{i}")
                 if pred is None or gt is None:
@@ -85,11 +90,11 @@ class Trainer:
                     -10.0 * np.log10(max(mse, 1e-12)))
             if evaluator is not None:
                 evaluator.evaluate(out, batch)
-        state.model.train()
+        model.train()
         result = evaluator.summarize() if evaluator is not None else {}
         result = {**{k: float(np.mean(v)) for k, v in stats_acc.items()},
                   **result}
-        if result:
+        if result and is_main():
             print("val loss stats: " + "  ".join(
                 f"{k}: {v:.4f}" for k, v in sorted(result.items())))
             self.recorder.update(result)

@@ -283,3 +283,134 @@ def test_composite_bg_stage_gradients_on_jax_inputs(train_pair, head_replay,
     torch.autograd.backward(list(outs), [torch.from_numpy(c) for c in cts])
     worst = _hold_module_gradients(model, stage, port, jgrads)
     print(f"{stage}: worst gradient (cosine, -relative L2, parameter) {worst}")
+
+
+def test_composite_train_step_matches_jax(train_pair, monkeypatch):
+    """One step of the port's train step (``make_train_step``: the train
+    loss, the clip, Adam, the BN running statistics) with the composite
+    against the JAX package's ``make_train_step(..., model_cls=
+    ENeRFComposite)`` on the same batch and weights carried across. The
+    same compiled program also runs ``make_bn_refresh_step``
+    (``bn_update_every`` 1: one momentum-0.9 update, torch's) for the
+    running statistics and the gradient of the step's loss (``model.apply``
+    with ``mutable=["batch_stats"]`` and ``compute_loss``, as
+    ``make_train_step`` takes it). Bounds of
+    ``tests/test_torch_train_step.py``: loss rtol 1e-5; gradients at
+    cosine ≥ 0.999, the background branch's at ≥ ``BG_COSINE``; after one
+    Adam step every parameter within 2·lr of JAX's and beyond 0.1·lr on
+    under 0.5 % of the entries; BN running statistics rtol 1e-4, atol
+    1e-5, flax's biased batch variance scaled by n / (n − 1).
+
+    JAX's BNs compute their batch variance in the two-pass form here
+    (flax's ``use_fast_variance=False``, set on the JAX package's one
+    ``nn.BatchNorm`` call, ``enerf_tpu/models/layers.py:87``, for this
+    test only; the package is not edited), as the port's BN does. Flax's
+    default E[x²] − E[x]² cancels in f32: with it the background branch's
+    worst gradient, ``cost_reg_0_bg.conv11.1.bias``, is at cosine
+    0.985–0.986 with the port's, with the two-pass form at 0.9994–0.9996;
+    this is the conditioning gap of the module docstring."""
+    import dataclasses
+    import functools
+    import types
+
+    import flax.linen as fnn
+
+    import enerf_tpu.models.layers as jlayers
+    from enerf_tpu.config import TrainConfig
+    from enerf_tpu.parallel.mesh import make_mesh
+    from enerf_tpu.train.loss import compute_loss as j_compute_loss
+    from enerf_tpu.train.state import create_train_state as j_create_state
+    from enerf_tpu.train.step import make_bn_refresh_step
+    from enerf_tpu.train.step import make_train_step as j_make_train_step
+    from enerf_tpu_torch import config as pc
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+    from enerf_tpu_torch.utils.convert import flax_state_dict
+
+    monkeypatch.setattr(jlayers, "nn", types.SimpleNamespace(**{
+        **vars(fnn), "BatchNorm": functools.partial(fnn.BatchNorm,
+                                                    use_fast_variance=False)}))
+    lr = 1e-3
+    jcfg = dataclasses.replace(train_pair["jcfg"], ep_iter=10,
+                               train=TrainConfig(lr=lr, bn_update_every=1))
+    pcfg = dataclasses.replace(_port_cfg(jcfg), ep_iter=10,
+                               train=pc.TrainConfig(lr=lr))
+    jb, variables = train_pair["jb"], train_pair["variables"]
+    batch = {k: np.asarray(v) for k, v in jb.items()}
+    mesh = make_mesh((1,), ("data",), devices=jax.devices()[:1])
+    train = j_make_train_step(jcfg, mesh, (H, W), model_cls=JComposite,
+                              batch_stats_template=variables["batch_stats"])
+    refresh = make_bn_refresh_step(jcfg, mesh, model_cls=JComposite)
+    jmodel = JComposite(cfg=jcfg.enerf, train_mode=True)
+
+    def loss_fn(params, batch):
+        out, _ = jmodel.apply({"params": params,
+                               "batch_stats": variables["batch_stats"]},
+                              batch, mutable=["batch_stats"])
+        return j_compute_loss(out, batch, jcfg.enerf, (H, W), None)[0]
+
+    def both(state, batch):
+        new_bs = refresh(state.params, state.batch_stats, batch)
+        grads = jax.grad(loss_fn)(state.params, batch)
+        new_state, stats = train(state, batch)
+        return new_state.params, stats, new_bs, grads
+
+    state = j_create_state(jcfg, variables)
+    jparams, jstats, jbs, jgrads = jax.tree_util.tree_map(
+        np.asarray, jax.jit(both).lower(state, jb).compile(
+            compiler_options=FAST_COMPILE)(state, jb))
+
+    model = load_flax_variables(build_model(pcfg, device="cpu", train=True),
+                                variables)
+    n_per_channel = {}
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.register_forward_hook(
+                lambda mod, inp, out, name=name: n_per_channel.__setitem__(
+                    name, inp[0].numel() // inp[0].shape[1]))
+    _, pstats = make_train_step(pcfg, (H, W))(
+        create_train_state(pcfg, model), batch)
+
+    assert set(pstats) == set(jstats)
+    for k in jstats:
+        np.testing.assert_allclose(float(pstats[k]), float(jstats[k]),
+                                   rtol=1e-5, err_msg=k)
+
+    ref = flax_leaves_by_param(model, jgrads)
+    worst = {True: (2.0, None), False: (2.0, None)}     # by bg branch
+    for k, p in model.named_parameters():
+        g_ref = np.clip(ref[k], -40.0, 40.0)            # the step's clip
+        if np.abs(g_ref).max() < 1e-7:
+            assert p.grad is None or float(p.grad.abs().max()) < 1e-6, k
+            continue
+        g = p.grad.numpy().ravel()
+        cos = float(np.dot(g, g_ref.ravel())
+                    / (np.linalg.norm(g) * np.linalg.norm(g_ref)))
+        bg = k.split(".")[0].endswith("_bg")
+        worst[bg] = min(worst[bg], (cos, k))
+    print(f"train step: worst gradient cosine {worst[False]}, "
+          f"background {worst[True]}")
+    assert worst[False][0] >= 0.999, worst[False]
+    assert worst[True][0] >= BG_COSINE, worst[True]
+
+    ref = flax_leaves_by_param(model, jparams)
+    before = flax_leaves_by_param(model, variables["params"])
+    port = {k: p.detach().numpy() for k, p in model.named_parameters()}
+    diff = np.concatenate([np.abs(port[k] - ref[k]).ravel() for k in port])
+    moved = np.concatenate([np.abs(port[k] - before[k]).ravel()
+                            for k in port])
+    assert moved.max() > 0.5 * lr
+    assert diff.max() <= 2 * lr + 1e-6, diff.max()
+    assert np.mean(diff > 0.1 * lr) < 0.005, np.mean(diff > 0.1 * lr)
+
+    old = flax_state_dict({"batch_stats": variables["batch_stats"]})
+    new = flax_state_dict({"batch_stats": jbs})
+    buffers = dict(model.named_buffers())
+    stat_keys = [k for k in new if k.endswith(("running_mean", "running_var"))]
+    assert len(stat_keys) == 2 * len(n_per_channel)
+    for k in stat_keys:
+        expect = new[k]
+        if k.endswith("running_var"):
+            n = n_per_channel[k.rsplit(".", 1)[0]]
+            expect = 0.9 * old[k] + (new[k] - 0.9 * old[k]) * n / (n - 1)
+        np.testing.assert_allclose(buffers[k].numpy(), expect, rtol=1e-4,
+                                   atol=1e-5, err_msg=k)

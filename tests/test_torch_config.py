@@ -102,6 +102,25 @@ def test_unknown_network_module_raises():
         build_model(cfg, device="cpu")
 
 
+@pytest.mark.parametrize("where", ["yaml", "command_line"])
+def test_compute_dtype_other_than_float32_raises(where, tmp_path):
+    """The port computes in float32 only: a ``compute_dtype`` of bfloat16,
+    from a YAML file or from the command line, raises and names the
+    queued bf16 mode; ``float32`` loads as before."""
+    base = str(REPO / "configs" / "enerf" / "dtu_pretrain.yaml")
+
+    def load(dtype):
+        if where == "command_line":
+            return make_cfg(base, ["compute_dtype", dtype])
+        path = tmp_path / f"{dtype}.yaml"
+        path.write_text(f"parent_cfg: {base}\ncompute_dtype: {dtype}\n")
+        return make_cfg(str(path))
+
+    with pytest.raises(ValueError, match="Queue 1, item 4"):
+        load("bfloat16")
+    assert load("float32") == make_cfg(base)
+
+
 def test_bench_workload_configs():
     """``human_eval_config`` / ``human_mask`` / ``composite_eval_config``
     keep bench.py's constants and mask rule (bench.py:64-65, :256-261)."""

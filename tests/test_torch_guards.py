@@ -85,6 +85,7 @@ def test_no_jax_import_in_subprocess():
         "import enerf_tpu_torch.eval.visualizer\n"
         "import enerf_tpu_torch.eval.visualizer_interactive\n"
         "import enerf_tpu_torch.datasets.zjumocap_interactive\n"
+        "import enerf_tpu_torch.parallel, enerf_tpu_torch.graft_entry\n"
         "from enerf_tpu_torch.config import make_cfg\n"
         "make_cfg('configs/enerf/dtu_pretrain.yaml')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -121,7 +122,7 @@ def test_no_jax_import_in_sources():
             assert root not in UNNEEDED, (rel, name)
     smoke = (REPO / "chip_smoke.py").read_text()
     for phase in ("run_dtu", "jpeg", "run_zjumocap", "run_outdoor",
-                  "train_cli", "interactive", "visualize"):
+                  "train_cli", "interactive", "visualize", "ddp"):
         assert f"def phase_{phase}" in smoke, phase
 
 
@@ -134,18 +135,21 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
     assert enerf_tpu_torch.build_model(dtu_eval_config(), device="cpu")
 
 
-@pytest.mark.parametrize("entry", ["gui_human", "run_visualize"])
+@pytest.mark.parametrize("entry", ["gui_human", "run_visualize",
+                                   "graft_entry"])
 def test_entry_points_default_to_the_card(entry, monkeypatch, tmp_path):
-    """``python -m enerf_tpu_torch.gui_human --headless N`` and ``run
-    --type visualize`` without ``--device`` ask for the GPU and raise
-    without one, before they read or write a file."""
-    from enerf_tpu_torch import gui_human, run
+    """``python -m enerf_tpu_torch.gui_human --headless N``, ``run --type
+    visualize`` and ``graft_entry.entry()`` without a device ask for the
+    GPU and raise without one, before they read or write a file."""
+    from enerf_tpu_torch import graft_entry, gui_human, run
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     opts = ["workspace", str(tmp_path / "absent")]
     with pytest.raises(RuntimeError, match="CUDA"):
         if entry == "gui_human":
             gui_human.main(["--headless", "2", *opts])
+        elif entry == "graft_entry":
+            graft_entry.entry()
         else:
             run.main(["--type", "visualize", "--cfg_file", str(
                 REPO / "configs/enerf/enerf_outdoor/actor1_path.yaml"),

@@ -104,10 +104,16 @@ def test_saved_config_reads_back(trained):
     assert saved["train_cmd.txt"].endswith(" ".join(argv))
 
 
-def test_train_cli_refuses_distributed(capsys):
+def test_train_cli_distributed_needs_launcher(capsys, monkeypatch):
+    """``--distributed`` without ``torch.distributed.run``'s environment
+    exits 2 with a message (and joins no process group)."""
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
     with pytest.raises(SystemExit) as exc:
         main(["--distributed", "--device", "cpu"])
-    assert exc.value.code == 2 and "multi-GPU" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert exc.value.code == 2 and "torch.distributed.run" in err, err
+    assert not torch.distributed.is_initialized()
 
 
 def test_zjumocap_train_config_takes_a_step(tmp_path):
