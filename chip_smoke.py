@@ -26,6 +26,16 @@ Phases, each printing one JSON line:
            count, a white background; times as for k1, beside its bound
            (three TF32 passes on the tensor cores, the kernel's route, as
            for k2) and the f32 CUDA-core one
+  bf16     the bf16 compute mode (compute_dtype: bfloat16): the DTU,
+           human, composite and val frames at full size (launches of the
+           bf16 variants only, each counted from 0; frame ms by CUDA
+           events, peak memory, the frame vs the bf16 plain path and its
+           gap to the float32 frame beside the CPU yardstick; every
+           kernel call of a frame vs its plain version), the 512x640 train
+           step (ms and split, peak memory, K4-mixed launches, the loss
+           beside float32's), and each bf16 variant's device ms
+           (torch.profiler, mean of 20, no record lost), event and plain
+           ms and bound: K1-bf16, K2-bf16, K2-L0-bf16, K4-mixed
   frames   the DTU eval forward (512x640, 3 source views, volume planes
            (48, 8), render_if (False, True), grid rays, seeded random
            weights) through ``build_model`` / ``render``: per-frame and
@@ -139,9 +149,11 @@ Phases, each printing one JSON line:
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
 path: frames, human, composite, val, run_dtu, run_zjumocap, run_outdoor,
 interactive, visualize, train, train_cli, ddp; its calls of a human, a
-composite and a val frame in ``per_frame_by_path``), the nvidia-smi line,
+composite and a val frame in ``per_frame_by_path``; the bf16 variants as
+entries of their own, launched on the bf16 paths), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before the last line. Float32 throughout, TF32 off. A bound
+non-zero before the last line. Float32 throughout but the bf16 phase,
+TF32 off. A bound
 counts each input read once and each output written once; K1's source
 features only where its voxels' bilinear footprints touch them
 (``k1_work``).
@@ -151,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import re
 import statistics
@@ -193,6 +206,31 @@ K4_TOL = dict(rtol=1e-4, atol=1e-6)
 # bf16 tolerances): one rounding of an f32 result, summed in another order
 K4_BF16_TOL = {"depth": dict(rtol=1e-2, atol=0.0),
                "std": dict(rtol=2e-2, atol=1e-3)}
+# The bf16 compute mode (phase bf16). K1's bf16 variant vs its plain
+# version: each rounds an f32 variance once to bf16, and the f32 values
+# differ as K1_TOL allows, so a rounding may fall on either side: one bf16
+# ulp (at most 2^-7 of the value) beside K1_TOL's atol. K2's and K2-L0's
+# bf16-volume variants and K4's mixed variant compute in f32 from the same
+# bf16 values as their plain versions, and are held as in f32.
+BF16_TOLS = {"cost_volume": dict(rtol=2.0 ** -7, atol=1e-3),
+             "render": K2_TOL, "depth_regression": K4_TOL}
+# The CPU yardstick: JAX's own bf16 forward vs its f32 forward, max |diff|
+# at the DTU eval configuration, 64x96, 3 views (the JAX package's jnp path
+# on the CPU). A bf16 frame is held to its bf16 plain path within half of
+# it: a kernel's f32 reassociation before a bf16 rounding may flip that
+# rounding, and a flip moves everything after it.
+BF16_YARDSTICK = {"depth": 1.94e-2, "depth_mvs": 2.04e-2, "rgb": 7.5e-3,
+                  "std": 3.3e-3, "weights": 2.7e-3}
+BF16_FRAMES = 2       # counted frames of each bf16 frame path
+BF16_TIMED = 10       # timed frames (CUDA events, after a first frame)
+BF16_TRAIN_STEPS = 3  # timed bf16 train steps, after one
+# bf16 variant launches a frame on each bf16 path (K1-bf16, K2-bf16,
+# K2-L0-bf16, K4-mixed); every float32 variant launches none
+BF16_PER_FRAME = {
+    "dtu": (2, 1, 0, 2), "human": (2, 1, 0, 2), "composite": (4, 0, 0, 4),
+    "val": (2, 1, 1, 2), "train": (0, 0, 0, 2)}
+BF16_KERNELS = ("cost_volume_bf16", "render_bf16", "render_l0_bf16",
+                "depth_regression_mixed")
 # kernel launches a frame (or a train step) on each main path; "render" is
 # csrc/render.cu (level 1's head), "render_l0" csrc/render_l0.cu (level 0's)
 FRAMES_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
@@ -206,9 +244,28 @@ VAL_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 1,
 # the val main path: Trainer.val over this many frames, the first excluded
 # from the times (as many timed frames as the other frame phases)
 VAL_BATCHES = 1 + TIMED_FRAMES
-LIBRARY_NONE_RENDER = ("no single PyTorch call computes the IBR head "
-                       "(projection, bilinear gather, Agg, MLPs) and the "
-                       "compositing")
+# each kernel: (its source, the TPU kernel it replaces, why no PyTorch call
+# computes the same function)
+KERNEL_SOURCES = {
+    "cost_volume": (
+        "enerf_tpu_torch/csrc/cost_volume.cu",
+        "enerf_tpu/ops/pallas/cost_volume.py:122",
+        "no single PyTorch call warps, gathers and takes the masked "
+        "variance"),
+    "render": (
+        "enerf_tpu_torch/csrc/render.cu", "enerf_tpu/ops/pallas/render.py:426",
+        "no single PyTorch call computes the IBR head (projection, bilinear "
+        "gather, Agg, MLPs) and the compositing"),
+    "render_l0": (
+        "enerf_tpu_torch/csrc/render_l0.cu",
+        "enerf_tpu/ops/pallas/render.py:426",
+        "no single PyTorch call computes the IBR head (projection, bilinear "
+        "gather, Agg, MLPs) and the compositing"),
+    "depth_regression": (
+        "enerf_tpu_torch/csrc/depth_regression.cu",
+        "enerf_tpu/ops/pallas/reductions.py:66",
+        "no single PyTorch call computes softmax + expectation + std"),
+}
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10      # timed steps of the train main path
 # the card vs the CPU on a small train step: f32 with TF32 off on both, but
@@ -830,9 +887,12 @@ def render_kernel(args) -> str:
 def hold_path_kernels(torch, path, model, batch, per_frame):
     """Each kernel call of one frame of ``path`` held on its own against
     its plain version, on the very inputs the frame gave it (recorded by
-    ``recorded_kernel_calls``), within the kernel's tolerance; with its
-    device time, the plain version's time and its bound. The frame must
-    make ``per_frame`` calls of each kernel. Returns the cases."""
+    ``recorded_kernel_calls``), within the kernel's tolerance for its
+    input type (``BF16_TOLS`` for a bf16 variant's call), with its bound.
+    The frame must make ``per_frame`` calls of each kernel. Returns the
+    cases, each with the call and its plain version bound to its inputs
+    (``fn``, ``plain_fn``) and the kernel's symbol, for the caller to time
+    (``time_path_kernels``)."""
     import enerf_tpu_torch as et
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
@@ -857,23 +917,29 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
     with torch.inference_mode():
         for i, (kernel, args, kw) in enumerate(calls):
             wrapper, plain_fn, symbol = kernel_fns[kernel]
-            call = lambda: wrapper(*args, **kw)            # noqa: E731
-            plain_call = lambda: plain_fn(*args, **kw)     # noqa: E731
+            # bound to this call's arguments (the cases keep them)
+            call = functools.partial(wrapper, *args, **kw)
+            plain_call = functools.partial(plain_fn, *args, **kw)
             out, ref = call(), plain_call()
             torch.cuda.synchronize()
             what = f"{path} call {i} {kernel}"
             case = dict(path=path, call=i, kernel=kernel)
+            volume = args[4] if kernel.startswith("render") else args[0]
+            tol = (BF16_TOLS[kernel.replace("_l0", "")]
+                   if volume.dtype == torch.bfloat16 else None)
             if kernel == "cost_volume":
                 window = kw.get("window")
-                err = max_err(torch, out, ref, what=what, **K1_TOL)
+                tol = tol or K1_TOL
+                err = max_err(torch, out, ref, what=what, **tol)
                 io, flops, pixels = k1_work(torch, *args, out, window)
                 bd, by = bound_ms(io, flops)
                 case.update(shape=list(out.shape), mode=(
                     "crop" if window is not None else "full"),
-                    feature_pixels_read=pixels, tol=K1_TOL)
+                    feature_pixels_read=pixels, tol=tol)
             elif kernel == "depth_regression":
                 logits, values, inv = args
-                err = max(max_err(torch, o, p, what=f"{what} {k}", **K4_TOL)
+                tol = tol or K4_TOL
+                err = max(max_err(torch, o, p, what=f"{what} {k}", **tol)
                           for k, o, p in zip(("depth", "std"), out, ref))
                 io = nbytes(logits, values, *out)
                 flops = logits.numel() * (10 + (2 if inv else 0))
@@ -881,11 +947,11 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
                 case.update(shape=list(logits.shape), depth_inv=inv,
                             plan=list(kdr.plan(logits.shape[1],
                                                logits[:, 0].numel())),
-                            tol=K4_TOL)
+                            tol=tol)
             else:
+                tol = tol or K2_TOL
                 err = max(max_err(torch, out[k], ref[k], what=f"{what} {k}",
-                                  **K2_TOL) for k in ("rgb", "depth",
-                                                      "weights"))
+                                  **tol) for k in ("rgb", "depth", "weights"))
                 io, flops, _ = k2_work(args, out)
                 # both render kernels: the head's products in three TF32
                 # passes on the tensor cores (render.cu's route)
@@ -894,15 +960,52 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
                             slots=args[3].shape[1],
                             views_valid=(None if args[8] is None
                                          else float(args[8].sum())),
-                            tol=K2_TOL)
-            case.update(max_abs_err=err,
-                        device_ms=device_kernel_ms(torch, call, symbol),
-                        plain_ms=time_ms(torch, plain_call, reps=5,
-                                         warmup=1)["median"],
-                        bound_ms=bd, bound_by=by, bytes=io, flops=flops)
-            emit(f"{path}_kernels", **case)
+                            tol=tol)
+            case.update(max_abs_err=err, bound_ms=bd, bound_by=by, bytes=io,
+                        flops=flops, fn=call, plain_fn=plain_call,
+                        symbol=symbol)
             cases.append(case)
     return cases
+
+
+def emit_cases(cases) -> None:
+    """One ``{path}_kernels`` line a case of ``hold_path_kernels``."""
+    for case in cases:
+        emit(f"{case['path']}_kernels",
+             **{k: v for k, v in case.items() if not callable(v)})
+
+
+def time_path_kernels(torch, cases):
+    """``hold_path_kernels``' cases with each call's device time and its
+    plain version's time, emitted. Returns the cases."""
+    with torch.inference_mode():
+        for case in cases:
+            case.update(device_ms=device_kernel_ms(torch, case["fn"],
+                                                   case["symbol"]),
+                        plain_ms=time_ms(torch, case["plain_fn"], reps=5,
+                                         warmup=1)["median"])
+    emit_cases(cases)
+    return cases
+
+
+def cases_bound(kernel, cases, tensor_cores=True) -> tuple:
+    """(bound ms, what bounds it) of ``cases``' calls of ``kernel``
+    together: the render kernels' products on the tensor cores
+    (TF32_PASSES passes) unless ``tensor_cores`` is False."""
+    tc = tensor_cores and kernel.startswith("render")
+    return bound_ms(sum(c["bytes"] for c in cases),
+                    (TF32_PASSES if tc else 1) * sum(c["flops"] for c in cases),
+                    TF32_FLOPS_PER_S if tc else F32_FLOPS_PER_S)
+
+
+def kernel_entry(name, kernel, **fields) -> dict:
+    """An entry of the kernels line: ``name``, a variant of ``kernel``,
+    with its route, source, the TPU kernel it replaces, ``fields`` and a
+    null ``library_ms`` with the reason (``KERNEL_SOURCES``)."""
+    source, replaces, why = KERNEL_SOURCES[kernel]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **fields, "library_ms": None,
+            "library_ms_reason": why}
 
 
 def randomize_bn_stats(torch, model, seed):
@@ -920,7 +1023,7 @@ def reset_launches():
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
-    kcv.launches = kdr.launches = 0
+    kcv.launches = kdr.launches = kcv.launches_bf16 = kdr.launches_mixed = 0
     krender.reset_launches()
 
 
@@ -1124,7 +1227,8 @@ def phase_human(torch):
          syncs_per_frame=syncs, modes=modes)
     profile_device(torch, "human_profile", lambda: et.render(model, batch),
                    2, "frame")
-    cases = hold_path_kernels(torch, "human", model, batch, HUMAN_PER_FRAME)
+    cases = time_path_kernels(torch, hold_path_kernels(
+        torch, "human", model, batch, HUMAN_PER_FRAME))
     return launches, cases
 
 
@@ -1169,8 +1273,8 @@ def phase_composite(torch):
          card_vs_cpu_128x160_max_abs_err=err_cpu)
     profile_device(torch, "composite_profile",
                    lambda: et.render(model, batch), 2, "frame")
-    cases = hold_path_kernels(torch, "composite", model, batch,
-                              COMPOSITE_PER_FRAME)
+    cases = time_path_kernels(torch, hold_path_kernels(
+        torch, "composite", model, batch, COMPOSITE_PER_FRAME))
     return launches, cases
 
 
@@ -1297,7 +1401,8 @@ def phase_val(torch):
          card_vs_cpu_128x160_max_abs_err=err_cpu)
     profile_device(torch, "val_profile", lambda: et.render(model, batch), 2,
                    "frame")
-    cases = hold_path_kernels(torch, "val", model, batch, VAL_PER_FRAME)
+    cases = time_path_kernels(torch, hold_path_kernels(
+        torch, "val", model, batch, VAL_PER_FRAME))
     return launches, cases
 
 
@@ -1545,20 +1650,34 @@ def phase_profile(torch, model, batch, frames: int = 2) -> None:
 
 
 # torch.profiler's CUDA trace loses the first kernel records of a session,
-# torch's own kernels as well as the port's: none in most sessions, a few
-# in every session late in the script, at times over a hundred. Each
-# session therefore opens with LEAD_LAUNCHES spin kernels that take the
-# loss; a session in which none of them survived may have lost measured
-# launches and is run again. How many each session lost is in the
-# ``profiler_lead`` line.
+# torch's own kernels as well as the port's (cause not found: ROADMAP.md,
+# Queue 3 item 3). A pause of LEAD_PAUSE_S on the host between opening a
+# session and its first kernel makes the large losses rare (on the H100:
+# a session lost 35 to all 128 of its lead-in in 7 of 162 sessions
+# without the pause, in 3 of 342 with it), not the small ones (1-12
+# records in most sessions either way). Each session therefore pauses,
+# then opens with LEAD_LAUNCHES spin kernels that take and count the loss
+# (the ``profiler_lead`` line); a session in which none of them survived
+# may have lost measured launches and is run again.
+LEAD_PAUSE_S = 0.02
 LEAD_LAUNCHES = 128
 LEAD_KERNEL = "spin_kernel"      # the kernel of torch.cuda._sleep
 LEAD_LOST = []                   # (session label, lead records lost)
+CURRENT_PHASE = "start"          # main()'s running phase (``run_phase``)
+
+
+def run_phase(name: str, fn, *args):
+    """``fn(*args)`` as the phase ``name``, which labels its profiler
+    sessions."""
+    global CURRENT_PHASE
+    CURRENT_PHASE = name
+    return fn(*args)
 
 
 def lead_in(torch) -> None:
-    """Open a profiler session: LEAD_LAUNCHES spin kernels of ~100 cycles,
-    then a synchronize."""
+    """Open a profiler session: a LEAD_PAUSE_S pause on the host, then
+    LEAD_LAUNCHES spin kernels of ~100 cycles, then a synchronize."""
+    time.sleep(LEAD_PAUSE_S)
     for _ in range(LEAD_LAUNCHES):
         torch.cuda._sleep(100)
     torch.cuda.synchronize()
@@ -1592,11 +1711,13 @@ def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
             for _ in range(n):
                 run_once()
             torch.cuda.synchronize()
-        whole, kernels = split_lead(prof.events(), phase)
+        whole, kernels = split_lead(prof.events(),
+                                    f"{CURRENT_PHASE}: {phase}")
         if whole and kernels:
             break
-        print(f"chip_smoke: {phase}: the profiler lost the session's lead-in "
-              "or recorded no device activity; profiling again",
+        print(f"chip_smoke: {CURRENT_PHASE}: {phase}: the profiler lost "
+              "the session's lead-in or recorded no device activity; "
+              "profiling again",
               file=sys.stderr)
     else:
         fail(f"{phase}: the profiler lost the lead-in or recorded no device "
@@ -1620,14 +1741,17 @@ def profile_device(torch, phase, run_once, n: int, unit: str) -> None:
 
 
 def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
-                     warmup: int = 5, tries: int = 6) -> float:
+                     warmup: int = 5, tries: int = 6,
+                     label: str = None) -> float:
     """Mean device time of the kernel named ``kernel_name`` over the last
     ``n`` of ``warmup + n`` calls of ``fn``, from torch.profiler's CUDA
     trace: the kernel alone, without the host time of its wrapper that CUDA
     events around a call include. Each session opens with ``lead_in``; one
-    that lost the whole lead-in or has fewer than ``n`` launches (the
+    that lost the whole lead-in or any record of the measured kernel (the
     trace now and then records nothing at all) is run again after a short
-    pause, at most ``tries`` times."""
+    pause, at most ``tries`` times. The session is named by the running
+    phase and ``label`` (the kernel's name by default) in the rerun
+    message and in ``LEAD_LOST``."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(tries):
@@ -1639,16 +1763,18 @@ def device_kernel_ms(torch, fn, kernel_name: str, n: int = 20,
             for _ in range(warmup + n):
                 fn()
             torch.cuda.synchronize()
-        whole, kernels = split_lead(prof.events(), kernel_name)
+        session = f"{CURRENT_PHASE}: {label or kernel_name}"
+        whole, kernels = split_lead(prof.events(), session)
         launches = sorted((e for e in kernels if kernel_name in e.name),
                           key=lambda e: e.time_range.start)
-        if whole and len(launches) >= n:
+        if whole and len(launches) >= warmup + n:
             return statistics.mean(e.time_range.elapsed_us() / 1e3
                                    for e in launches[-n:])
-        print(f"chip_smoke: the profiler saw {len(launches)} launches of "
-              f"{kernel_name}, expected {warmup + n}, lead-in kept: "
-              f"{whole}; profiling again", file=sys.stderr)
-    fail(f"the profiler missed launches of {kernel_name} {tries} times")
+        print(f"chip_smoke: {session}: the profiler saw {len(launches)} "
+              f"launches of {kernel_name}, expected {warmup + n}, lead-in "
+              f"kept: {whole}; profiling again", file=sys.stderr)
+    fail(f"{session}: the profiler missed launches of {kernel_name} {tries} "
+         "times")
 
 
 def k4_plan_device_ms(torch, kdr, logits, values, inv, ppt, want):
@@ -1782,6 +1908,280 @@ def phase_k4_floor(torch) -> dict:
                  run_ms=run_ms(torch, call), ms=time_ms(torch, call))
     emit("k4_floor", **floor)
     return floor
+
+
+def read_bf16_launches() -> dict:
+    """The bf16 variants' launch counts (``BF16_KERNELS`` order)."""
+    from enerf_tpu_torch.ops.kernels import cost_volume as kcv
+    from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import render as krender
+
+    return dict(zip(BF16_KERNELS, (
+        kcv.launches_bf16, krender.launches_bf16["render"],
+        krender.launches_bf16["render_l0"], kdr.launches_mixed)))
+
+
+def check_bf16_launches(path, n):
+    """The bf16 variants launched ``BF16_PER_FRAME[path]`` times ``n`` since
+    the last reset, and no float32 variant."""
+    got = read_bf16_launches()
+    expect = dict(zip(BF16_KERNELS, (k * n for k in BF16_PER_FRAME[path])))
+    f32 = read_launches()
+    if got != expect or any(f32.values()):
+        fail(f"bf16 {path}: launches {got} and float32 {f32}, expected "
+             f"{expect} and none")
+    return got
+
+
+def bf16_models(torch, cfg, seed, bn_seed, train=False):
+    """``cfg``'s model in float32 (seeded, BN statistics randomized) and
+    in the bf16 mode with the same weights, on the card."""
+    import dataclasses
+
+    import enerf_tpu_torch as et
+
+    m32 = et.build_model(cfg, seed=seed, train=train)
+    randomize_bn_stats(torch, m32, seed=bn_seed)
+    m16 = et.build_model(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                         seed=seed, train=train)
+    m16.load_state_dict(m32.state_dict())
+    return m32, m16
+
+
+def bf16_frame(torch, path, m32, m16, batch, render_frames=None):
+    """One bf16 frame path: ``BF16_FRAMES`` frames with the counts reset
+    just before and read just after (``render_frames(n)`` renders them, a
+    loop of ``render`` by default), the outputs finite; the frame ms (CUDA
+    events, median of ``BF16_TIMED`` after a first frame) and peak memory,
+    bf16, then the float32 model on the same batch, then bf16 again;
+    the frame vs the bf16 plain path (within half of ``BF16_YARDSTICK``);
+    its gap to the float32 frame beside the yardstick; then every kernel
+    call of one frame vs its plain version (``hold_path_kernels``, not
+    timed: ``phase_bf16`` times each variant once). Returns (fields,
+    launches, cases)."""
+    import enerf_tpu_torch as et
+
+    def frames(n):
+        for _ in range(n):
+            out = et.render(m16, batch)
+        return out
+
+    reset_launches()
+    out = (render_frames or frames)(BF16_FRAMES)
+    torch.cuda.synchronize()
+    launches = check_bf16_launches(path, BF16_FRAMES)
+    out = et.render(m16, batch)
+    for k, v in out.items():
+        if v.dtype != torch.float32 or not bool(torch.isfinite(v).all()):
+            fail(f"bf16 {path}: {k} is {v.dtype} or not finite")
+    frame, peak_gb = {}, {}
+    for name, m in (("bfloat16", m16), ("float32", m32), ("bfloat16_again",
+                                                           m16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        frame[name] = time_ms(torch, lambda: et.render(m, batch),
+                              reps=BF16_TIMED, warmup=1)
+        peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
+    with plain_path():
+        ref = et.render(m16, batch)
+    kind = lambda k: k.rsplit("_level", 1)[0]  # noqa: E731
+    err = {k: max_err(torch, out[k], ref[k], 0.0,
+                      0.5 * BF16_YARDSTICK[kind(k)],
+                      f"bf16 {path} {k} kernel vs bf16 plain path")
+           for k in out}
+    out32 = et.render(m32, batch)
+    gap = {k: float((out[k] - out32[k]).abs().max()) for k in out}
+    if not all(g > 0 for g in gap.values()):
+        fail(f"bf16 {path}: the bf16 frame equals the float32 one {gap}")
+    per_frame = dict(zip(("cost_volume", "render", "render_l0",
+                          "depth_regression"), BF16_PER_FRAME[path]))
+    cases = hold_path_kernels(torch, f"bf16_{path}", m16, batch, per_frame)
+    emit_cases(cases)
+    fields = dict(launches=launches, frame_ms=frame,
+                  peak_mem_gb=peak_gb, kernel_vs_plain_max_abs_err=err,
+                  tol_atol={k: 0.5 * BF16_YARDSTICK[kind(k)] for k in out},
+                  gap_to_float32={k: {"card": gap[k],
+                                      "cpu_yardstick": BF16_YARDSTICK[kind(k)]}
+                                  for k in out})
+    return fields, launches, cases
+
+
+def float32_twin(torch, call):
+    """``call`` (a ``functools.partial`` of a kernel wrapper) with every
+    bfloat16 tensor argument in float32: the float32 variant's launch on
+    the same values."""
+    f32 = lambda a: (a.float() if isinstance(a, torch.Tensor)  # noqa: E731
+                     and a.dtype == torch.bfloat16 else a)
+    return functools.partial(call.func, *map(f32, call.args),
+                             **call.keywords)
+
+
+def phase_bf16(torch):
+    """The bf16 compute mode on the card (``compute_dtype: bfloat16``):
+    the DTU frame (512x640, planes (48, 8)), the human frame (512x512), the
+    composite frame (512x640) and the val frame (``Trainer.val`` of
+    ``Config()``'s cascade, both levels rendered) by ``bf16_frame``; the
+    train step at 512x640, planes (64, 8): step ms with its forward /
+    backward / optimizer split, peak memory, launches (K4-mixed only: the
+    cost volume and render stage train on their plain versions), its
+    loss beside the float32 step's on the same weights and batch; then
+    each bf16 variant's device time (torch.profiler, mean of 20, no record
+    lost), CUDA-event and plain times and bound at the DTU frame's shapes
+    (K2-L0 at the val frame's level 0). Returns (launches by path, the
+    variants' entries of the kernels line)."""
+    import dataclasses
+    import tempfile
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import (
+        Config,
+        composite_eval_config,
+        dtu_eval_config,
+        human_eval_config,
+        human_mask,
+    )
+    from enerf_tpu_torch.datasets.synthetic import (
+        make_composite_batch,
+        make_synthetic_batch,
+    )
+    from enerf_tpu_torch.train import Trainer, create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    paths, cases, fields = {}, {}, {}
+    cfg = dtu_eval_config()
+    m32, m16 = bf16_models(torch, cfg, 0, 0)
+    batch = et.device_batch(_synthetic(cfg, 3), "cuda")
+    fields["dtu"], paths["dtu"], cases["dtu"] = bf16_frame(
+        torch, "dtu", m32, m16, batch)
+    profile_device(torch, "bf16_profile", lambda: et.render(m16, batch), 2,
+                   "frame")
+    profile_device(torch, "bf16_profile_float32",
+                   lambda: et.render(m32, batch), 2, "frame")
+
+    cfg = human_eval_config()
+    m32, m16 = bf16_models(torch, cfg, 0, 1)
+    hb = make_synthetic_batch(cfg, H=512, W=512)
+    hb["mask_at_box"] = human_mask(512, 512)
+    fields["human"], paths["human"], cases["human"] = bf16_frame(
+        torch, "human", m32, m16, et.device_batch(hb, "cuda"))
+
+    cfg = composite_eval_config()
+    m32, m16 = bf16_models(torch, cfg, 0, 2)
+    cb = et.device_batch(make_composite_batch(cfg, H=H, W=W), "cuda")
+    fields["composite"], paths["composite"], cases["composite"] = bf16_frame(
+        torch, "composite", m32, m16, cb)
+
+    with tempfile.TemporaryDirectory() as tmp:   # Trainer's records
+        cfg = Config(workspace=tmp)
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, grid_rays=True))
+        m32, m16 = bf16_models(torch, cfg, 0, 3)
+        val_batches = [make_synthetic_batch(cfg, H=H, W=W, seed=i)
+                       for i in range(BF16_FRAMES)]
+        trainer = Trainer(cfg, train_step=None)
+        metrics = {}
+
+        def val_frames(n):
+            metrics.update(trainer.val(0, create_train_state(cfg, m16),
+                                       val_batches[:n]))
+            m16.eval()               # Trainer.val leaves it in training mode
+
+        fields["val"], paths["val"], cases["val"] = bf16_frame(
+            torch, "val", m32, m16, et.device_batch(val_batches[0], "cuda"),
+            render_frames=val_frames)
+    fields["val"]["metrics"] = metrics
+    for path, f in fields.items():
+        emit("bf16_frame", path=path, **f)
+
+    # the train step
+    cfg = bench_train_config()
+    m32, m16 = bf16_models(torch, cfg, 0, 4, train=True)
+    tb = et.device_batch(make_synthetic_batch(cfg, H=H, W=W, split="train"),
+                         "cuda")
+    timer = StageTimer(torch)
+
+    def steps(model, cfg):
+        """1 + BF16_TRAIN_STEPS steps: losses, step ms, phase ms, peak."""
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, (H, W))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, phases = [], [], []
+        for _ in range(1 + BF16_TRAIN_STEPS):
+            t1 = time.perf_counter()
+            timer.start()
+            state, stats = step(state, tb, phase_hook=timer)
+            losses.append(float(stats["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            phases.append(timer.stages_ms())
+        return losses, step_ms, phases, torch.cuda.max_memory_allocated() / 1e9
+
+    loss32, ms32, phases32, peak32 = steps(m32, cfg)
+    del m32
+    reset_launches()
+    losses, step_ms, phases, peak16 = steps(
+        m16, dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    paths["train"] = check_bf16_launches("train", 1 + BF16_TRAIN_STEPS)
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        fail(f"bf16 train: losses {losses}")
+    if any(p.dtype != torch.float32 for p in m16.parameters()):
+        fail("bf16 train: a parameter is not float32")
+    med = lambda ph: {k: statistics.median(p[k] for p in ph[1:])  # noqa: E731
+                      for k in ph[1]}
+    emit("bf16_train", H=H, W=W, steps=1 + BF16_TRAIN_STEPS,
+         launches=paths["train"], step_ms=step_ms,
+         median_step_ms=statistics.median(step_ms[1:]),
+         median_phase_ms=med(phases), peak_mem_gb=peak16, loss=losses,
+         float32_step_ms=ms32, float32_median_step_ms=statistics.median(
+             ms32[1:]), float32_median_phase_ms=med(phases32),
+         float32_peak_mem_gb=peak32, float32_loss=loss32,
+         first_loss_rel_gap=abs(losses[0] - loss32[0]) / abs(loss32[0]))
+    del m16
+
+    # each variant at the main path's shapes: the DTU frame's calls (K2-L0:
+    # the val frame's)
+    kernels = []
+    for name, kernel, path in (("cost_volume_bf16", "cost_volume", "dtu"),
+                               ("render_bf16", "render", "dtu"),
+                               ("render_l0_bf16", "render_l0", "val"),
+                               ("depth_regression_mixed", "depth_regression",
+                                "dtu")):
+        cs = [c for c in cases[path] if c["kernel"] == kernel]
+        with torch.inference_mode():
+            dev = [device_kernel_ms(torch, c["fn"], c["symbol"], label=name)
+                   for c in cs]
+            # the float32 variant on the same inputs in float32
+            dev32 = [device_kernel_ms(torch, float32_twin(torch, c["fn"]),
+                                      c["symbol"], label=f"{name} float32")
+                     for c in cs]
+            ms = [time_ms(torch, c["fn"])["median"] for c in cs]
+            plain = [time_ms(torch, c["plain_fn"], reps=5,
+                             warmup=1)["median"] for c in cs]
+        bd, by = cases_bound(kernel, cs)
+        by_path = {p: v[name] for p, v in paths.items()}
+        entry = kernel_entry(
+            name, kernel, launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            max_abs_err=max(c["max_abs_err"] for cases_p in cases.values()
+                            for c in cases_p if c["kernel"] == kernel),
+            # per frame at the main path's shapes: every call of the frame
+            calls=len(cs), shapes_from=path, ms=sum(ms), device_ms=sum(dev),
+            device_ms_by_call=dev, float32_device_ms=sum(dev32),
+            plain_ms=sum(plain), bound_ms=bd, bound_by=by,
+            tol=BF16_TOLS[kernel.replace("_l0", "")])
+        if kernel.startswith("render"):
+            entry["bound_f32_ms"] = cases_bound(kernel, cs,
+                                                tensor_cores=False)[0]
+        kernels.append(entry)
+    emit("bf16", seconds=time.perf_counter() - t0,
+         launches_by_path=paths,
+         kernels={e["name"]: {k: e[k] for k in ("device_ms",
+                                                  "float32_device_ms", "ms",
+                                                  "plain_ms", "bound_ms",
+                                                  "bound_by", "launches")}
+                  for e in kernels})
+    return paths, kernels
 
 
 def bench_train_config():
@@ -3026,35 +3426,43 @@ def main() -> None:
     from enerf_tpu_torch.config import dtu_eval_config
 
     cfg = dtu_eval_config()
-    smi_line = phase_device(torch)
-    l0_resources = phase_build()
-    k1 = phase_k1(torch, cfg)
-    k1_crop = phase_k1_crop(torch)
-    k2 = phase_k2(torch, cfg)
-    k2_l0 = phase_k2_l0(torch, cfg)
+    smi_line = run_phase("device", phase_device, torch)
+    l0_resources = run_phase("build", phase_build)
+    k1 = run_phase("k1", phase_k1, torch, cfg)
+    k1_crop = run_phase("k1_crop", phase_k1_crop, torch)
+    k2 = run_phase("k2", phase_k2, torch, cfg)
+    k2_l0 = run_phase("k2_l0", phase_k2_l0, torch, cfg)
+    bf16_paths, bf16_kernels = run_phase("bf16", phase_bf16, torch)
     paths = {}
-    paths["frames"], model, batch = phase_frames(torch, cfg)
-    phase_profile(torch, model, batch)
+    paths["frames"], model, batch = run_phase("frames", phase_frames, torch,
+                                              cfg)
+    run_phase("profile", phase_profile, torch, model, batch)
     del model, batch
-    paths["human"], human_calls = phase_human(torch)
-    paths["composite"], composite_calls = phase_composite(torch)
-    paths["val"], val_calls = phase_val(torch)
-    paths["run_dtu"] = phase_run_dtu(torch, smi_line)
-    phase_jpeg(torch, smi_line)
-    paths["run_zjumocap"] = phase_run_zjumocap(torch, smi_line)
-    paths["run_outdoor"] = phase_run_outdoor(torch, smi_line)
-    paths["interactive"] = phase_interactive(torch, smi_line)
-    paths["visualize"] = phase_visualize(torch, smi_line)
+    paths["human"], human_calls = run_phase("human", phase_human, torch)
+    paths["composite"], composite_calls = run_phase(
+        "composite", phase_composite, torch)
+    paths["val"], val_calls = run_phase("val", phase_val, torch)
+    paths["run_dtu"] = run_phase("run_dtu", phase_run_dtu, torch, smi_line)
+    run_phase("jpeg", phase_jpeg, torch, smi_line)
+    paths["run_zjumocap"] = run_phase("run_zjumocap", phase_run_zjumocap,
+                                      torch, smi_line)
+    paths["run_outdoor"] = run_phase("run_outdoor", phase_run_outdoor, torch,
+                                     smi_line)
+    paths["interactive"] = run_phase("interactive", phase_interactive, torch,
+                                     smi_line)
+    paths["visualize"] = run_phase("visualize", phase_visualize, torch,
+                                   smi_line)
     path_calls = {"human": human_calls, "composite": composite_calls,
                   "val": val_calls}
-    k4 = phase_k4(torch, cfg)
-    floor = phase_k4_floor(torch)
-    paths["train"], state, step, train_batch = phase_train(torch)
+    k4 = run_phase("k4", phase_k4, torch, cfg)
+    floor = run_phase("k4_floor", phase_k4_floor, torch)
+    paths["train"], state, step, train_batch = run_phase("train", phase_train,
+                                                         torch)
     profile_device(torch, "train_profile",
                    lambda: step(state, train_batch), 2, "step")
     del state, step, train_batch
-    paths["train_cli"] = phase_train_cli(smi_line)
-    paths["ddp"] = phase_ddp(torch, smi_line)
+    paths["train_cli"] = run_phase("train_cli", phase_train_cli, smi_line)
+    paths["ddp"] = run_phase("ddp", phase_ddp, torch, smi_line)
     emit("profiler_lead", lead_launches=LEAD_LAUNCHES,
          sessions=len(LEAD_LOST), max_lost=max(n for _, n in LEAD_LOST),
          sessions_with_loss=sum(n > 0 for _, n in LEAD_LOST),
@@ -3067,17 +3475,12 @@ def main() -> None:
     def on_paths(kernel):
         """A frame's calls of ``kernel`` on each variant's path, each held
         on its own (``hold_path_kernels``): summed times and bound."""
-        # K2's products (both head shapes) bounded on the tensor cores
-        tc = kernel in ("render", "render_l0")
         by_path = {}
         for path, cases in path_calls.items():
             cs = [c for c in cases if c["kernel"] == kernel]
             if not cs:
                 continue
-            bd, by = bound_ms(
-                sum(c["bytes"] for c in cs),
-                (TF32_PASSES if tc else 1) * sum(c["flops"] for c in cs),
-                TF32_FLOPS_PER_S if tc else F32_FLOPS_PER_S)
+            bd, by = cases_bound(kernel, cs)
             by_path[path] = {
                 "calls": len(cs),
                 "max_abs_err": max(c["max_abs_err"] for c in cs),
@@ -3100,75 +3503,63 @@ def main() -> None:
                                sum(c["flops"] for c in per_step))
     crop_frame = [c for c in k1_crop if c["case"] in ("fg_level0", "fg_level1")]
     kernels = [
-        {"name": "cost_volume", "route": "cuda",
-         "source": "enerf_tpu_torch/csrc/cost_volume.cu",
-         "replaces": "enerf_tpu/ops/pallas/cost_volume.py:122",
-         **launches("cost_volume"),
-         "max_abs_err": max(max(c["max_abs_err"] for c in k1 + k1_crop),
+        kernel_entry(
+            "cost_volume", "cost_volume", **launches("cost_volume"),
+            max_abs_err=max(max(c["max_abs_err"] for c in k1 + k1_crop),
                             path_err("cost_volume")),
-         # per DTU frame: the level-0 and level-1 launches together
-         "ms": sum(c["ms"]["median"] for c in per_frame),
-         "run_ms": sum(c["run_ms"] for c in per_frame),
-         "device_ms": sum(c["device_ms"] for c in per_frame),
-         "plain_ms": sum(c["plain_ms"]["median"] for c in per_frame),
-         "bound_ms": k1_bound, "bound_by": k1_by,
-         # the crop mode: the composite frame's two fg windows
-         "crop_device_ms": sum(c["device_ms"] for c in crop_frame),
-         "crop_plain_ms": sum(c["plain_ms"]["median"] for c in crop_frame),
-         "crop_bound_ms": sum(c["bound_ms"] for c in crop_frame),
-         # a human and a composite frame's calls, each on its own inputs
-         "per_frame_by_path": on_paths("cost_volume"),
-         "library_ms": None},
-        {"name": "render", "route": "cuda",
-         "source": "enerf_tpu_torch/csrc/render.cu",
-         "replaces": "enerf_tpu/ops/pallas/render.py:426",
-         **launches("render"),
-         "max_abs_err": max(max(c["max_abs_err"] for c in k2),
+            # per DTU frame: the level-0 and level-1 launches together
+            ms=sum(c["ms"]["median"] for c in per_frame),
+            run_ms=sum(c["run_ms"] for c in per_frame),
+            device_ms=sum(c["device_ms"] for c in per_frame),
+            plain_ms=sum(c["plain_ms"]["median"] for c in per_frame),
+            bound_ms=k1_bound, bound_by=k1_by,
+            # the crop mode: the composite frame's two fg windows
+            crop_device_ms=sum(c["device_ms"] for c in crop_frame),
+            crop_plain_ms=sum(c["plain_ms"]["median"] for c in crop_frame),
+            crop_bound_ms=sum(c["bound_ms"] for c in crop_frame),
+            # a human and a composite frame's calls, each on its own inputs
+            per_frame_by_path=on_paths("cost_volume")),
+        kernel_entry(
+            "render", "render", **launches("render"),
+            max_abs_err=max(max(c["max_abs_err"] for c in k2),
                             path_err("render")),
-         "ms": full["ms"]["median"], "run_ms": full["run_ms"],
-         "device_ms": full["device_ms"],
-         "plain_ms": full["plain_ms"]["median"],
-         "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-         "bound_f32_ms": full["bound_f32_ms"],
-         "per_frame_by_path": on_paths("render"), "library_ms": None,
-         "library_ms_reason": LIBRARY_NONE_RENDER},
-        {"name": "render_l0", "route": "cuda",
-         "source": "enerf_tpu_torch/csrc/render_l0.cu",
-         "replaces": "enerf_tpu/ops/pallas/render.py:426",
-         **launches("render_l0"),
-         "max_abs_err": max(max(c["max_abs_err"] for c in k2_l0),
+            ms=full["ms"]["median"], run_ms=full["run_ms"],
+            device_ms=full["device_ms"], plain_ms=full["plain_ms"]["median"],
+            bound_ms=full["bound_ms"], bound_by=full["bound_by"],
+            bound_f32_ms=full["bound_f32_ms"],
+            per_frame_by_path=on_paths("render")),
+        kernel_entry(
+            "render_l0", "render_l0", **launches("render_l0"),
+            max_abs_err=max(max(c["max_abs_err"] for c in k2_l0),
                             path_err("render_l0")),
-         # a 512x640 frame's level 0: 20,480 rays, S = 3
-         "ms": full_l0["ms"]["median"], "run_ms": full_l0["run_ms"],
-         "device_ms": full_l0["device_ms"],
-         "plain_ms": full_l0["plain_ms"]["median"],
-         "bound_ms": full_l0["bound_ms"], "bound_by": full_l0["bound_by"],
-         "bound_f32_ms": full_l0["bound_f32_ms"],
-         "per_frame_by_path": on_paths("render_l0"),
-         # by S: ptxas' registers and spill bytes, the dynamic shared memory
-         "resources_by_s": l0_resources, "library_ms": None,
-         "library_ms_reason": LIBRARY_NONE_RENDER},
-        {"name": "depth_regression", "route": "cuda",
-         "source": "enerf_tpu_torch/csrc/depth_regression.cu",
-         "replaces": "enerf_tpu/ops/pallas/reductions.py:66",
-         **launches("depth_regression"),
-         "max_abs_err": max(max(max(c["max_abs_err"], c["grad_max_abs_err"])
+            # a 512x640 frame's level 0: 20,480 rays, S = 3
+            ms=full_l0["ms"]["median"], run_ms=full_l0["run_ms"],
+            device_ms=full_l0["device_ms"],
+            plain_ms=full_l0["plain_ms"]["median"],
+            bound_ms=full_l0["bound_ms"], bound_by=full_l0["bound_by"],
+            bound_f32_ms=full_l0["bound_f32_ms"],
+            per_frame_by_path=on_paths("render_l0"),
+            # by S: ptxas' registers and spill bytes, the dynamic shared
+            # memory
+            resources_by_s=l0_resources),
+        kernel_entry(
+            "depth_regression", "depth_regression",
+            **launches("depth_regression"),
+            max_abs_err=max(max(max(c["max_abs_err"], c["grad_max_abs_err"])
                                 for c in k4 if c["dtype"] == "float32"),
                             path_err("depth_regression")),
-         "max_abs_err_bf16": max(max(c["max_abs_err"], c["grad_max_abs_err"])
+            max_abs_err_bf16=max(max(c["max_abs_err"], c["grad_max_abs_err"])
                                  for c in k4 if c["dtype"] == "bfloat16"),
-         # per train step: the level-0 and level-1 launches together
-         "ms": sum(c["ms"]["median"] for c in per_step),
-         "run_ms": sum(c["run_ms"] for c in per_step),
-         "device_ms": sum(c["device_ms"] for c in per_step),
-         # an empty kernel's device time, twice (two launches a step)
-         "launch_floor_ms": 2 * floor["device_ms"],
-         "plain_ms": sum(c["plain_ms"]["median"] for c in per_step),
-         "bound_ms": k4_bound, "bound_by": k4_by,
-         "per_frame_by_path": on_paths("depth_regression"),
-         # no single PyTorch call computes softmax + expectation + std
-         "library_ms": None},
-    ]
+            # per train step: the level-0 and level-1 launches together
+            ms=sum(c["ms"]["median"] for c in per_step),
+            run_ms=sum(c["run_ms"] for c in per_step),
+            device_ms=sum(c["device_ms"] for c in per_step),
+            # an empty kernel's device time, twice (two launches a step)
+            launch_floor_ms=2 * floor["device_ms"],
+            plain_ms=sum(c["plain_ms"]["median"] for c in per_step),
+            bound_ms=k4_bound, bound_by=k4_by,
+            per_frame_by_path=on_paths("depth_regression")),
+    ] + bf16_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -133,6 +133,10 @@ class TrainConfig:
     input_views_prob: Tuple[float, ...] = (0.1, 0.8, 0.1)
 
 
+# the values of ``Config.compute_dtype``, the JAX package's two
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 @dataclass(frozen=True)
 class Config:
     """Root config; mirrors the reference's top-level cfg keys."""
@@ -177,6 +181,16 @@ class Config:
     fps: int = 24
     # the train CLI's NaN tripwire: torch.autograd.set_detect_anomaly
     debug_nans: bool = False
+    # the type the convs and the 3D CNN compute in (``COMPUTE_DTYPES``):
+    # "bfloat16" casts the computation, not the parameters, optimizer state
+    # or checkpoints, which stay float32 (``enerf_tpu/config.py:276``)
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype {self.compute_dtype!r}: the port computes in "
+                f"{' or '.join(COMPUTE_DTYPES)}")
 
     @property
     def trained_model_dir(self) -> str:
@@ -510,12 +524,6 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None,
     tree["exp_name"] = exp_name
     # the reference's actor1.yaml puts num_fg_layers at top level; it
     # belongs to the enerf block
-    dtype = tree.get("compute_dtype", "float32")
-    if dtype != "float32":
-        raise ValueError(
-            f"compute_dtype {dtype!r}: the port computes in float32 only; "
-            "the bf16 compute mode is still to be ported (ROADMAP.md, "
-            "Queue 1, item 4)")
     if "num_fg_layers" in tree:
         enerf_tree = dict(tree.get("enerf", {}))
         enerf_tree["num_fg_layers"] = tree.pop("num_fg_layers")

@@ -22,7 +22,10 @@
 // enerf_tpu/ops/warp.py:build_cost_volume_crop (lax.dynamic_slice) has it.
 // feats (B, S, Hs, Ws, C) NHWC, proj (B, S, 3, 4), depth (B, D, Ht, Wt),
 // view_mask (B, S), origin (B, 2) int [x0, y0] or null (0), out
-// (B, D, h, w, C) channels-last.
+// (B, D, h, w, C) channels-last. feats and out are both float or both
+// bf16 (the bf16 compute mode); the arithmetic is float either way, and a
+// bf16 volume is rounded once, at the store, as the TPU kernel accumulates
+// in f32 and writes feats.dtype.
 //
 // What bounds it on the H100: memory. Per voxel it writes C floats and
 // does ~10 C flops per view; the feature maps (8 MB at level 0, 16 MB at
@@ -47,8 +50,14 @@
 // the gathers' traffic from L2: 4 corner rows of C floats per voxel and
 // view (377 MB at level 0 and 503 MB at level 1 of the 512x640 frame),
 // against the 40 / 60 MB of the bound.
+// The bf16 variant is the same kernel templated on the element type: a
+// lane's 4 channels are one 8-byte load (a 64-byte row at C = 32) and one
+// 8-byte store, so the feature reads and the output write halve; the
+// lanes, shuffles and float accumulators are the float variant's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -70,26 +79,51 @@ __device__ __forceinline__ float warp_row(const float* P, float x, float y,
   return __fadd_rn(base, __fdiv_rn(P[3], d));
 }
 
-__device__ __forceinline__ void add_corner(const float4* __restrict__ row,
-                                           float w, float4& v) {
-  const float4 a = __ldg(row);
+// Four consecutive channels as floats: one 16-byte load of float, one
+// 8-byte load of bf16 (a bf16 is the upper half of its float's bits).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+// rounded to nearest even, once
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <typename T>
+__device__ __forceinline__ void add_corner(const T* __restrict__ row, float w,
+                                           float4& v) {
+  const float4 a = load4(row);
   v.x += w * a.x;
   v.y += w * a.y;
   v.z += w * a.z;
   v.w += w * a.w;
 }
 
-template <int C>
+template <int C, typename T>
 __global__ void __launch_bounds__(THREADS)
-cost_volume_kernel(const float* __restrict__ feats,
+cost_volume_kernel(const T* __restrict__ feats,
                    const float* __restrict__ proj,
                    const float* __restrict__ depth,
                    const float* __restrict__ vmask,
                    const int* __restrict__ origin,
-                   float* __restrict__ out,
+                   T* __restrict__ out,
                    int B, int S, int Hs, int Ws, int D, int Ht, int Wt,
                    int h, int w) {
-  constexpr int L = C / 4;   // float4s of a voxel's channels
+  constexpr int L = C / 4;   // 4-channel vectors of a voxel's channels
   constexpr int G = group_lanes<C>();
   // one plane (b, d) a grid row: the plane and batch are uniform over the
   // block, and only a voxel's y and x take a (32-bit) divide. The entry
@@ -102,7 +136,7 @@ cost_volume_kernel(const float* __restrict__ feats,
   const bool live = tid / G < plane && lane < L;
   const unsigned p = tid / G < plane ? tid / G : plane - 1;
   const unsigned idx = bd * plane + p;      // the voxel's flat index
-  const int q = lane < L ? lane : L - 1;   // this lane's float4
+  const int q = lane < L ? lane : L - 1;   // this lane's 4 channels
   const int y = (int)(p / w);
   const int x = (int)(p - y * w);
   int x0 = 0, y0 = 0;
@@ -153,14 +187,13 @@ cost_volume_kernel(const float* __restrict__ feats,
       const bool vx1 = x0 + 1 >= 0 && x0 + 1 <= Ws - 1;
       const bool vy0 = y0 >= 0 && y0 <= Hs - 1;
       const bool vy1 = y0 + 1 >= 0 && y0 + 1 <= Hs - 1;
-      // this lane's float4 of pixel (0, 0); pixel p is L float4s further
-      const float4* img = reinterpret_cast<const float4*>(
-          feats + ((long long)b * S + s) * Hs * Ws * C) + q;
+      // this lane's 4 channels of pixel (0, 0); pixel p is C elements further
+      const T* img = feats + ((long long)b * S + s) * Hs * Ws * C + 4 * q;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (vy0 && vx0) add_corner(img + ((long long)y0 * Ws + x0) * L, (1.f - tx) * (1.f - ty), v);
-      if (vy0 && vx1) add_corner(img + ((long long)y0 * Ws + x0 + 1) * L, tx * (1.f - ty), v);
-      if (vy1 && vx0) add_corner(img + ((long long)(y0 + 1) * Ws + x0) * L, (1.f - tx) * ty, v);
-      if (vy1 && vx1) add_corner(img + ((long long)(y0 + 1) * Ws + x0 + 1) * L, tx * ty, v);
+      if (vy0 && vx0) add_corner(img + ((long long)y0 * Ws + x0) * C, (1.f - tx) * (1.f - ty), v);
+      if (vy0 && vx1) add_corner(img + ((long long)y0 * Ws + x0 + 1) * C, tx * (1.f - ty), v);
+      if (vy1 && vx0) add_corner(img + ((long long)(y0 + 1) * Ws + x0) * C, (1.f - tx) * ty, v);
+      if (vy1 && vx1) add_corner(img + ((long long)(y0 + 1) * Ws + x0 + 1) * C, tx * ty, v);
       sum.x += m * v.x; sq.x += m * v.x * v.x;
       sum.y += m * v.y; sq.y += m * v.y * v.y;
       sum.z += m * v.z; sq.z += m * v.z * v.z;
@@ -171,39 +204,54 @@ cost_volume_kernel(const float* __restrict__ feats,
   if (!live) return;
   const float inv = 1.f / fmaxf(cnt, 1.f);
   const float4 mean = make_float4(sum.x * inv, sum.y * inv, sum.z * inv, sum.w * inv);
-  reinterpret_cast<float4*>(out)[(long long)idx * L + lane] =
-      make_float4(sq.x * inv - mean.x * mean.x, sq.y * inv - mean.y * mean.y,
-                  sq.z * inv - mean.z * mean.z, sq.w * inv - mean.w * mean.w);
+  store4(out + ((long long)idx * L + lane) * 4,
+         make_float4(sq.x * inv - mean.x * mean.x, sq.y * inv - mean.y * mean.y,
+                     sq.z * inv - mean.z * mean.z, sq.w * inv - mean.w * mean.w));
 }
 
-template <int C>
-cudaError_t launch(const float* feats, const float* proj, const float* depth,
-                   const float* vmask, const int* origin, float* out, int B,
+template <int C, typename T>
+cudaError_t launch(const void* feats, const float* proj, const float* depth,
+                   const float* vmask, const int* origin, void* out, int B,
                    int S, int Hs, int Ws, int D, int Ht, int Wt, int h, int w,
                    cudaStream_t stream) {
   const long long threads = (long long)h * w * group_lanes<C>();
   const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS), B * D);
-  cost_volume_kernel<C><<<grid, THREADS, 0, stream>>>(
-      feats, proj, depth, vmask, origin, out, B, S, Hs, Ws, D, Ht, Wt, h, w);
+  cost_volume_kernel<C, T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(feats), proj, depth, vmask, origin,
+      static_cast<T*>(out), B, S, Hs, Ws, D, Ht, Wt, h, w);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_typed(int bf16, const void* feats, const float* proj,
+                         const float* depth, const float* vmask,
+                         const int* origin, void* out, int B, int S, int Hs,
+                         int Ws, int D, int Ht, int Wt, int h, int w,
+                         cudaStream_t stream) {
+  return bf16 ? launch<C, __nv_bfloat16>(feats, proj, depth, vmask, origin,
+                                         out, B, S, Hs, Ws, D, Ht, Wt, h, w,
+                                         stream)
+              : launch<C, float>(feats, proj, depth, vmask, origin, out, B, S,
+                                 Hs, Ws, D, Ht, Wt, h, w, stream);
 }
 
 }  // namespace
 
 // origin may be null (the whole frame: pass h = Ht, w = Wt); 0 < h <= Ht
-// and 0 < w <= Wt.
-extern "C" int enerf_cost_volume(const float* feats, const float* proj,
+// and 0 < w <= Wt. feats and out are float (bf16 == 0) or __nv_bfloat16
+// (bf16 == 1), 16- or 8-byte aligned.
+extern "C" int enerf_cost_volume(const void* feats, const float* proj,
                                  const float* depth, const float* vmask,
-                                 const int* origin, float* out, int B, int S,
+                                 const int* origin, void* out, int B, int S,
                                  int Hs, int Ws, int C, int D, int Ht, int Wt,
-                                 int h, int w, void* stream) {
+                                 int h, int w, int bf16, void* stream) {
   if (h > Ht || w > Wt) return (int)cudaErrorInvalidValue;
   if ((long long)B * D * h * w == 0) return 0;
   if ((long long)B * D * h * w * 8 >= (1LL << 31) || B * D > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ENERF_CV_CASE(c) \
-  case c: return (int)launch<c>(feats, proj, depth, vmask, origin, out, B, S, Hs, Ws, D, Ht, Wt, h, w, st);
+  case c: return (int)launch_typed<c>(bf16, feats, proj, depth, vmask, origin, out, B, S, Hs, Ws, D, Ht, Wt, h, w, st);
   switch (C) {
     ENERF_CV_CASE(4) ENERF_CV_CASE(8) ENERF_CV_CASE(12) ENERF_CV_CASE(16)
     ENERF_CV_CASE(20) ENERF_CV_CASE(24) ENERF_CV_CASE(28) ENERF_CV_CASE(32)

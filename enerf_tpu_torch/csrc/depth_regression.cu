@@ -10,9 +10,11 @@
 //   v_d   = values[b, d, y, x], or 1 / max(v_d, 1e-6) when depth_inv
 //   depth = sum_d p_d v_d
 //   std   = sqrt(max(sum_d p_d (v_d - depth)^2, 1e-10))
-// logits, values (B, D, H, W) contiguous, both f32 or both bf16; depth, std
-// (B, H, W) in the input type. The arithmetic is f32 for either type, as in
-// the TPU kernel.
+// logits, values (B, D, H, W) contiguous: both f32, both bf16, or bf16
+// logits with f32 values (the bf16 compute mode, where the 3D CNN's logits
+// are bf16 and the plane values f32); depth, std (B, H, W) in the values'
+// type. The arithmetic is f32 for every pair, as in the TPU kernel; the
+// mixed pair reads each tensor in its own type, with no cast on the host.
 //
 // What bounds it on the H100: memory, and at the cascade's sizes (2.7 MB
 // at level 0, 5.9 MB at level 1 of the 512x640 frame, ~1-2 us of HBM time)
@@ -75,8 +77,8 @@ __device__ __forceinline__ float4 merge(float4 a, float4 b) {
 }
 
 // The partial of planes d0 .. d0 + PPT - 1 (those below D) of one pixel.
-template <int PPT, typename T>
-__device__ __forceinline__ float4 chunk_partial(const T* l, const T* v,
+template <int PPT, typename TL, typename TV>
+__device__ __forceinline__ float4 chunk_partial(const TL* l, const TV* v,
                                                 int d0, int D, long long P,
                                                 int depth_inv) {
   float lg[PPT], vv[PPT];
@@ -108,11 +110,11 @@ __device__ __forceinline__ float4 chunk_partial(const T* l, const T* v,
   return make_float4(m, s, mu, m2);
 }
 
-template <int PPT, typename T>
+template <int PPT, typename TL, typename TV>
 __global__ void __launch_bounds__(kWarp * kMaxGroups)
-depth_regression_kernel(const T* __restrict__ logits,
-                        const T* __restrict__ values,
-                        T* __restrict__ depth_out, T* __restrict__ std_out,
+depth_regression_kernel(const TL* __restrict__ logits,
+                        const TV* __restrict__ values,
+                        TV* __restrict__ depth_out, TV* __restrict__ std_out,
                         int D, long long P, long long total, int depth_inv) {
   extern __shared__ float4 part_all[];   // [tiles][G][32], only when G > 1
   const int lane = threadIdx.x, g = threadIdx.y, G = blockDim.y;
@@ -160,7 +162,7 @@ depth_regression_kernel(const T* __restrict__ logits,
   store_f32(std_out + idx, sqrtf(fmaxf(acc.w / acc.y, 1e-10f)));
 }
 
-template <int PPT, typename T>
+template <int PPT, typename TL, typename TV>
 cudaError_t launch(const void* logits, const void* values, void* depth,
                    void* std, int D, long long P, long long total,
                    int depth_inv, int groups, int tiles, cudaStream_t stream) {
@@ -168,25 +170,25 @@ cudaError_t launch(const void* logits, const void* values, void* depth,
   const dim3 block(kWarp, groups, tiles);
   const size_t smem =
       groups > 1 ? sizeof(float4) * kWarp * groups * tiles : 0;
-  depth_regression_kernel<PPT, T><<<(unsigned)blocks, block, smem, stream>>>(
-      static_cast<const T*>(logits), static_cast<const T*>(values),
-      static_cast<T*>(depth), static_cast<T*>(std), D, P, total, depth_inv);
+  depth_regression_kernel<PPT, TL, TV><<<(unsigned)blocks, block, smem, stream>>>(
+      static_cast<const TL*>(logits), static_cast<const TV*>(values),
+      static_cast<TV*>(depth), static_cast<TV*>(std), D, P, total, depth_inv);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TL, typename TV>
 cudaError_t dispatch(int planes_per_thread, const void* logits,
                      const void* values, void* depth, void* std, int D,
                      long long P, long long total, int depth_inv, int groups,
                      int tiles, cudaStream_t stream) {
   switch (planes_per_thread) {
-    case 1: return launch<1, T>(logits, values, depth, std, D, P, total,
+    case 1: return launch<1, TL, TV>(logits, values, depth, std, D, P, total,
                                 depth_inv, groups, tiles, stream);
-    case 2: return launch<2, T>(logits, values, depth, std, D, P, total,
+    case 2: return launch<2, TL, TV>(logits, values, depth, std, D, P, total,
                                 depth_inv, groups, tiles, stream);
-    case 4: return launch<4, T>(logits, values, depth, std, D, P, total,
+    case 4: return launch<4, TL, TV>(logits, values, depth, std, D, P, total,
                                 depth_inv, groups, tiles, stream);
-    case 8: return launch<8, T>(logits, values, depth, std, D, P, total,
+    case 8: return launch<8, TL, TV>(logits, values, depth, std, D, P, total,
                                 depth_inv, groups, tiles, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -196,13 +198,13 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// logits, values, depth, std: device pointers of float (bf16 == 0) or
-// __nv_bfloat16 (bf16 == 1). planes_per_thread in {1, 2, 4, 8}, groups and
-// tiles >= 1 with groups * tiles <= 32: the plan of
-// ops/kernels/depth_regression.py:plan.
+// logits, values, depth, std: device pointers, by `types`: 0 all float,
+// 1 all __nv_bfloat16, 2 __nv_bfloat16 logits with float values, depth and
+// std. planes_per_thread in {1, 2, 4, 8}, groups and tiles >= 1 with
+// groups * tiles <= 32: the plan of ops/kernels/depth_regression.py:plan.
 extern "C" int enerf_depth_regression(const void* logits, const void* values,
                                       void* depth, void* std, int B, int D,
-                                      int H, int W, int depth_inv, int bf16,
+                                      int H, int W, int depth_inv, int types,
                                       int planes_per_thread, int groups,
                                       int tiles, void* stream) {
   const long long P = (long long)H * W;
@@ -212,12 +214,18 @@ extern "C" int enerf_depth_regression(const void* logits, const void* values,
       (total + kWarp - 1) / kWarp > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? dispatch<__nv_bfloat16>(planes_per_thread, logits,
-                                              values, depth, std, D, P, total,
-                                              depth_inv, groups, tiles, s)
-                    : dispatch<float>(planes_per_thread, logits, values,
-                                      depth, std, D, P, total, depth_inv,
-                                      groups, tiles, s));
+  switch (types) {
+    case 0: return (int)dispatch<float, float>(
+        planes_per_thread, logits, values, depth, std, D, P, total,
+        depth_inv, groups, tiles, s);
+    case 1: return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(
+        planes_per_thread, logits, values, depth, std, D, P, total,
+        depth_inv, groups, tiles, s);
+    case 2: return (int)dispatch<__nv_bfloat16, float>(
+        planes_per_thread, logits, values, depth, std, D, P, total,
+        depth_inv, groups, tiles, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // One launch of an empty kernel: the launch floor that chip_smoke.py

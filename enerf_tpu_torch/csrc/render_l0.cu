@@ -22,7 +22,11 @@
 //   3. vox = trilinear sample (zeros padding, align_corners) of the level's
 //      un-resized (B, Dv, Hv, Wv, 8) feature volume at uvd; on grid rays
 //      this equals the JAX package's spatial resize + tent over the Dv
-//      planes (the tent is the two-plane lerp, 0 outside the volume);
+//      planes (the tent is the two-plane lerp, 0 outside the volume). The
+//      volume is float or, in the bf16 compute mode, bf16 (a template
+//      parameter): a lane's two channels are then one 4-byte load, turned
+//      into floats as they are read, as the TPU kernel converts its bf16
+//      volume in VMEM; every other input and all arithmetic stay float;
 //   4. h = relu(lr0([vox, agg])), sigma = softplus(sigma(h));
 //   5. color: per view relu(color_2(relu(color_0([h, vox, agg, f_s, dir_s]))))
 //      → masked softmax over views → blend of the source rgb;
@@ -92,6 +96,7 @@
 //     thousand tensor-core instructions, and the SM's other warps overlap
 //     them.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -351,9 +356,20 @@ __device__ __forceinline__ float agg_input(const float* slot, int q, const ViewF
   return v.real ? slot[32 * q] + relu(r) : 0.f;
 }
 
+// Two consecutive volume channels as floats: one 8-byte load of float, one
+// 4-byte load of bf16 (a bf16 is the upper half of its float's bits).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
 // Trilinear sample with zeros padding of a (Dv, Hv, Wv, CV) volume at voxel
 // coordinates (x, y, z): channels 2t and 2t + 1.
-__device__ __forceinline__ float2 sample_volume(const float* __restrict__ vol,
+template <typename TV>
+__device__ __forceinline__ float2 sample_volume(const TV* __restrict__ vol,
                                                 int Dv, int Hv, int Wv,
                                                 float x, float y, float z,
                                                 int t) {
@@ -380,8 +396,7 @@ __device__ __forceinline__ float2 sample_volume(const float* __restrict__ vol,
         const int xi = x0 + dx;
         if (xi < 0 || xi > Wv - 1) continue;
         const float wgt = wz * wy * (dx ? tw[0] : 1.f - tw[0]);
-        const float2 a = __ldg(reinterpret_cast<const float2*>(
-            vol + (((long long)zi * Hv + yi) * Wv + xi) * CV) + t);
+        const float2 a = load2(vol + (((long long)zi * Hv + yi) * Wv + xi) * CV + 2 * t);
         out.x += wgt * a.x;
         out.y += wgt * a.y;
       }
@@ -390,11 +405,11 @@ __device__ __forceinline__ float2 sample_volume(const float* __restrict__ vol,
   return out;
 }
 
-template <int S>
+template <int S, typename TV>
 __global__ void __launch_bounds__(THREADS, 1)
 render_l0_kernel(const float* __restrict__ xyz, const float* __restrict__ uvd,
                  const float* __restrict__ zvals, const float* __restrict__ imgs,
-                 const float* __restrict__ vol,
+                 const TV* __restrict__ vol,
                  const float* __restrict__ src_exts,
                  const float* __restrict__ src_ixts,
                  const float* __restrict__ tar_ext,
@@ -635,7 +650,7 @@ render_l0_kernel(const float* __restrict__ xyz, const float* __restrict__ uvd,
     relu_all<2>(agg);
 
     // 3. vox feature: channels 2t, 2t + 1 of sample g of both rays
-    const float* vol_b = vol + (long long)b * Dv * Hv * Wv * CV;
+    const TV* vol_b = vol + (long long)b * Dv * Hv * Wv * CV;
     float2 vx[ROWS];
 #pragma unroll
     for (int k = 0; k < ROWS; ++k) {
@@ -753,24 +768,24 @@ render_l0_kernel(const float* __restrict__ xyz, const float* __restrict__ uvd,
   }
 }
 
-template <int S>
+template <int S, typename TV>
 cudaError_t launch(const float* xyz, const float* uvd, const float* zvals,
-                   const float* imgs, const float* vol, const float* src_exts,
+                   const float* imgs, const void* vol, const float* src_exts,
                    const float* src_ixts, const float* tar_ext, const float* vmask,
                    const float* params, float* rgb, float* depth,
                    float* weights, int B, int N, int H, int W, int Dv,
                    int Hv, int Wv, int white_bkgd, float render_scale,
                    cudaStream_t stream) {
-  static int blocks_per_sm = 0;   // per S: set once, then read
+  static int blocks_per_sm = 0;   // per S and TV: set once, then read
   cudaError_t err;
   if (blocks_per_sm == 0) {
     // the dynamic shared-memory size first: the occupancy query reads it
-    err = cudaFuncSetAttribute(render_l0_kernel<S>,
+    err = cudaFuncSetAttribute(render_l0_kernel<S, TV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes<S>());
     if (err != cudaSuccess) return err;
     int nb = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, render_l0_kernel<S>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, render_l0_kernel<S, TV>,
                                                         THREADS, smem_bytes<S>());
     if (err != cudaSuccess) return err;
     if (nb < 1) return cudaErrorInvalidConfiguration;
@@ -784,32 +799,38 @@ cudaError_t launch(const float* xyz, const float* uvd, const float* zvals,
   const long long want = (n_tiles + WARPS - 1) / WARPS;
   const long long cap = (long long)sms * blocks_per_sm;
   const long long blocks = want < cap ? want : cap;
-  render_l0_kernel<S><<<(unsigned)blocks, THREADS, smem_bytes<S>(), stream>>>(
-      xyz, uvd, zvals, imgs, vol, src_exts, src_ixts, tar_ext, vmask, params,
+  render_l0_kernel<S, TV><<<(unsigned)blocks, THREADS, smem_bytes<S>(), stream>>>(
+      xyz, uvd, zvals, imgs, static_cast<const TV*>(vol), src_exts, src_ixts, tar_ext, vmask, params,
       rgb, depth, weights, B, N, H, W, Dv, Hv, Wv, white_bkgd, render_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// vol: float (vol_bf16 == 0) or __nv_bfloat16 (vol_bf16 == 1); every other
+// tensor float.
 extern "C" int enerf_render_rays_l0(const float* xyz, const float* uvd,
                                     const float* zvals, const float* imgs,
-                                    const float* vol, const float* src_exts,
+                                    const void* vol, const float* src_exts,
                                     const float* src_ixts, const float* tar_ext,
                                     const float* vmask, const float* params,
                                     float* rgb, float* depth, float* weights,
                                     int B, int N, int S, int H, int W, int Dv,
                                     int Hv, int Wv, int n_params, int white_bkgd,
-                                    float render_scale, void* stream) {
+                                    int vol_bf16, float render_scale, void* stream) {
   if (n_params != Src::SIZE) return (int)cudaErrorInvalidValue;
   if ((long long)B * N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ENERF_RENDER_CASE(s, T) \
+  return (int)launch<s, T>(xyz, uvd, zvals, imgs, vol, src_exts, src_ixts, tar_ext, vmask, params, rgb, depth, weights, B, N, H, W, Dv, Hv, Wv, white_bkgd, render_scale, st);
+#define ENERF_RENDER_S(s) \
+  case s: if (vol_bf16) { ENERF_RENDER_CASE(s, __nv_bfloat16) } else { ENERF_RENDER_CASE(s, float) }
   switch (S) {
-    case 2: return (int)launch<2>(xyz, uvd, zvals, imgs, vol, src_exts, src_ixts, tar_ext, vmask, params, rgb, depth, weights, B, N, H, W, Dv, Hv, Wv, white_bkgd, render_scale, st);
-    case 3: return (int)launch<3>(xyz, uvd, zvals, imgs, vol, src_exts, src_ixts, tar_ext, vmask, params, rgb, depth, weights, B, N, H, W, Dv, Hv, Wv, white_bkgd, render_scale, st);
-    case 4: return (int)launch<4>(xyz, uvd, zvals, imgs, vol, src_exts, src_ixts, tar_ext, vmask, params, rgb, depth, weights, B, N, H, W, Dv, Hv, Wv, white_bkgd, render_scale, st);
+    ENERF_RENDER_S(2) ENERF_RENDER_S(3) ENERF_RENDER_S(4)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef ENERF_RENDER_S
+#undef ENERF_RENDER_CASE
 }
 
 // The kernel's dynamic shared memory at S views, in bytes (0 for an S it

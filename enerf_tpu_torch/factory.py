@@ -83,5 +83,7 @@ def make_visualizer(cfg: Config):
 def make_network(cfg: Config,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """The network ``cfg.network_module`` names, weights drawn from
-    ``generator``, on the CPU in training mode (``nn.Module``'s default)."""
-    return network_class(cfg)(cfg.enerf, generator=generator)
+    ``generator``, computing in ``cfg.compute_dtype``, on the CPU in
+    training mode (``nn.Module``'s default)."""
+    return network_class(cfg)(cfg.enerf, generator=generator,
+                              dtype=getattr(torch, cfg.compute_dtype))

@@ -9,7 +9,9 @@ with bias=False: ``feat_conv`` (8ch feature volume) and ``depth_conv``
 cascade level 0.
 
 Returns (feature volume (B, D, H, W, 8) contiguous, depth logits
-(B, D, H, W)).
+(B, D, H, W)), both in the compute ``dtype``: in the bf16 mode the convs
+run in bf16 and the heads cast their input to it (JAX ``cost_reg.py:
+_dual_head``).
 """
 
 from __future__ import annotations
@@ -17,27 +19,37 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from enerf_tpu_torch.models.layers import ConvBnReLU3D, ConvTransposeBn
+from enerf_tpu_torch.models.layers import (
+    ConvBnReLU3D,
+    ConvTransposeBn,
+    conv_in,
+)
 
 
-def _heads(x, feat_conv, depth_conv):
-    feat = feat_conv(x).permute(0, 2, 3, 4, 1).contiguous()
-    return feat, depth_conv(x)[:, 0].contiguous()
+def _heads(x, feat_conv, depth_conv, dtype):
+    if dtype == torch.float32:
+        feat, logits = feat_conv(x), depth_conv(x)
+    else:
+        feat = conv_in(feat_conv[0], x, dtype)
+        logits = conv_in(depth_conv[0], x, dtype)
+    return feat.permute(0, 2, 3, 4, 1).contiguous(), logits[:, 0].contiguous()
 
 
 class CostRegNet(nn.Module):
-    def __init__(self, in_ch: int):
+    def __init__(self, in_ch: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = ConvBnReLU3D(in_ch, 8)
-        self.conv1 = ConvBnReLU3D(8, 16, stride=2)
-        self.conv2 = ConvBnReLU3D(16, 16)
-        self.conv3 = ConvBnReLU3D(16, 32, stride=2)
-        self.conv4 = ConvBnReLU3D(32, 32)
-        self.conv5 = ConvBnReLU3D(32, 64, stride=2)
-        self.conv6 = ConvBnReLU3D(64, 64)
-        self.conv7 = ConvTransposeBn(64, 32)
-        self.conv9 = ConvTransposeBn(32, 16)
-        self.conv11 = ConvTransposeBn(16, 8)
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.conv0 = ConvBnReLU3D(in_ch, 8, **kw)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2, **kw)
+        self.conv2 = ConvBnReLU3D(16, 16, **kw)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2, **kw)
+        self.conv4 = ConvBnReLU3D(32, 32, **kw)
+        self.conv5 = ConvBnReLU3D(32, 64, stride=2, **kw)
+        self.conv6 = ConvBnReLU3D(64, 64, **kw)
+        self.conv7 = ConvTransposeBn(64, 32, **kw)
+        self.conv9 = ConvTransposeBn(32, 16, **kw)
+        self.conv11 = ConvTransposeBn(16, 8, **kw)
         self.feat_conv = nn.Sequential(nn.Conv3d(8, 8, 3, padding=1, bias=False))
         self.depth_conv = nn.Sequential(nn.Conv3d(8, 1, 3, padding=1, bias=False))
 
@@ -49,19 +61,21 @@ class CostRegNet(nn.Module):
         x = conv4 + self.conv7(x)
         x = conv2 + self.conv9(x)
         x = conv0 + self.conv11(x)
-        return _heads(x, self.feat_conv, self.depth_conv)
+        return _heads(x, self.feat_conv, self.depth_conv, self.dtype)
 
 
 class MinCostRegNet(nn.Module):
-    def __init__(self, in_ch: int):
+    def __init__(self, in_ch: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = ConvBnReLU3D(in_ch, 8)
-        self.conv1 = ConvBnReLU3D(8, 16, stride=2)
-        self.conv2 = ConvBnReLU3D(16, 16)
-        self.conv3 = ConvBnReLU3D(16, 32, stride=2)
-        self.conv4 = ConvBnReLU3D(32, 32)
-        self.conv9 = ConvTransposeBn(32, 16)
-        self.conv11 = ConvTransposeBn(16, 8)
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.conv0 = ConvBnReLU3D(in_ch, 8, **kw)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2, **kw)
+        self.conv2 = ConvBnReLU3D(16, 16, **kw)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2, **kw)
+        self.conv4 = ConvBnReLU3D(32, 32, **kw)
+        self.conv9 = ConvTransposeBn(32, 16, **kw)
+        self.conv11 = ConvTransposeBn(16, 8, **kw)
         self.feat_conv = nn.Sequential(nn.Conv3d(8, 8, 3, padding=1, bias=False))
         self.depth_conv = nn.Sequential(nn.Conv3d(8, 1, 3, padding=1, bias=False))
 
@@ -71,4 +85,4 @@ class MinCostRegNet(nn.Module):
         conv4 = self.conv4(self.conv3(conv2))
         x = conv2 + self.conv9(conv4)
         x = conv0 + self.conv11(x)
-        return _heads(x, self.feat_conv, self.depth_conv)
+        return _heads(x, self.feat_conv, self.depth_conv, self.dtype)

@@ -18,6 +18,14 @@ are used on a level when ``grid_rays`` and, in training, ``train_img``
 of that level; otherwise the rays' bounds and volume features are
 gathered at their pixels.
 
+``dtype`` is the compute type (``compute_dtype``): float32, or bfloat16,
+which runs the FPN and the 3D CNNs in bf16 (``models/layers.py:conv_bn``)
+and gives K1 bf16 features, K4 bf16 logits with f32 plane values, and K2
+a bf16 feature volume beside its f32 image table, head and outputs, as
+the JAX package's bf16 mode does (``enerf_tpu/models/enerf.py``). The
+parameters stay float32. In training the image table is rounded to bf16
+before it is sampled (the JAX package's ``table_bf16``).
+
 ``ray_slice=(rank, world)`` renders one rank's share of a frame split over
 the ranks of a data-parallel run (``train/step.py:
 make_sharded_render_step``): the rank shades the contiguous rank-th of
@@ -28,6 +36,7 @@ per-ray outputs ``RAY_OUTPUTS`` of every other ray.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -64,14 +73,16 @@ RAY_OUTPUTS = ("rgb", "depth", "weights")
 
 class ENeRF(nn.Module):
     def __init__(self, cfg: ENeRFConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         cas = cfg.cas_config
-        self.feature_net = FeatureNet()
+        self.feature_net = FeatureNet(dtype)
         for i in range(cas.num):
             reg_cls = MinCostRegNet if i == 0 else CostRegNet
-            self.add_module(f"cost_reg_{i}", reg_cls(FEAT_CH[i]))
+            self.add_module(f"cost_reg_{i}", reg_cls(FEAT_CH[i], dtype))
             self.add_module(f"nerf_{i}", NeRFHead(
                 feat_ch=cas.nerf_model_feat_ch[i] + 3,
                 viewdir_agg=cfg.viewdir_agg))
@@ -191,7 +202,8 @@ class ENeRF(nn.Module):
         H, W = self.render_hw(level, batch)
         norm = torch.tensor([1.0 / (W - 1), 1.0 / (H - 1), 1.0],
                             dtype=uvd.dtype, device=uvd.device)
-        render = render_rays_plain if self.training else render_rays
+        render = (partial(render_rays_plain, table_bf16=self.table_bf16)
+                  if self.training else render_rays)
         return render(
             world_xyz, uvd * norm, z_vals, img_feat_rgb, feat_volume,
             batch["src_exts"], batch["src_ixts"], batch["tar_ext"], view_mask,
@@ -199,6 +211,13 @@ class ENeRF(nn.Module):
             render_scale=cas.render_scale[level],
             white_bkgd=self.cfg.white_bkgd,
             grid_hw=(H, W) if grid else None, window=window)
+
+    @property
+    def table_bf16(self) -> bool:
+        """Whether the image table is rounded to bf16 before it is sampled:
+        in training in the bf16 mode (``enerf_tpu/models/enerf.py:120-131``;
+        the port's eval has no ``gather_bf16`` switch)."""
+        return self.training and self.dtype == torch.bfloat16
 
     def render_hw(self, level, batch):
         """The (H, W) render frame of ``level``."""

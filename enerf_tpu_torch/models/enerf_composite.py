@@ -25,6 +25,11 @@ the head reads no volume feature, so the fg feature volume is never padded
 back or sampled) — as the JAX package runs it, on differentiable XLA and
 not on a Pallas kernel. The cost volumes (K1) and depth regression (K4)
 run their CUDA kernels in eval.
+
+``dtype`` is the compute type, as ``ENeRF``'s (the bf16 mode: FPNs and 3D
+CNNs in bf16, K1's bf16 variant, K4's mixed one; the heads in f32, as the
+JAX package's packed head runs, ``enerf_tpu/models/enerf_composite.py:
+170-207``; in training the image table rounded to bf16).
 """
 
 from __future__ import annotations
@@ -59,19 +64,22 @@ StageHook = Optional[Callable[[str], None]]
 
 class ENeRFComposite(nn.Module):
     def __init__(self, cfg: ENeRFConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         cas = cfg.cas_config
-        self.feature_net = FeatureNet()
-        self.feature_net_bg = FeatureNet()
+        self.feature_net = FeatureNet(dtype)
+        self.feature_net_bg = FeatureNet(dtype)
         heads = []
         for i in range(cas.num):
             # every level regularizes with MinCostRegNet
             # (network_composite.py:17,23)
             names = [f"layer{l}" for l in range(cfg.num_fg_layers)] + ["bg"]
             for name in names:
-                self.add_module(f"cost_reg_{i}_{name}", MinCostRegNet(FEAT_CH[i]))
+                self.add_module(f"cost_reg_{i}_{name}",
+                                MinCostRegNet(FEAT_CH[i], dtype))
                 head = NeRFHead(feat_ch=cas.nerf_model_feat_ch[i] + 3,
                                 viewdir_agg=cfg.viewdir_agg,
                                 use_vox_feat=False)
@@ -203,7 +211,8 @@ class ENeRFComposite(nn.Module):
         img_feat_rgb_dir = get_img_feat(
             world_xyz, image_features(cas, level, feats, src_inps),
             batch["src_exts"], batch["src_ixts"], batch["tar_ext"],
-            render_scale=cas.render_scale[level])
+            render_scale=cas.render_scale[level],
+            table_bf16=self.training and self.dtype == torch.bfloat16)
         raw = head(None, img_feat_rgb_dir, view_mask).reshape(B, N, n, -1)
         if cas.depth_inv[level]:
             z_vals = 1.0 / torch.clamp(z_vals, min=1e-6)

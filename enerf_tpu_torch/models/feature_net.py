@@ -5,31 +5,35 @@ conv0 8ch@1x → conv1 16ch@1/2 → conv2 32ch@1/4; 1x1 laterals to 32ch;
 top-down upsample-add (bilinear, align_corners); smooth convs. Takes and
 returns channels-last (NHWC) tensors; the convs run on NCHW views with
 channels-last strides, so the layout change costs no copy.
+
+In a compute ``dtype`` other than float32 (the bf16 mode) every conv runs
+in it and the three outputs are in it (JAX ``feature_net.py:27-62``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from enerf_tpu_torch.models.layers import ConvBnReLU
+from enerf_tpu_torch.models.layers import ConvBnReLU, conv_bias
+from enerf_tpu_torch.ops.sampling import resize_bilinear_nchw
 
 
 def _upsample_add(x, y):
-    return F.interpolate(x, size=y.shape[-2:], mode="bilinear",
-                         align_corners=True) + y
+    return resize_bilinear_nchw(x, y.shape[-2:]) + y
 
 
 class FeatureNet(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = nn.Sequential(ConvBnReLU(3, 8, 3, 1, 1),
-                                   ConvBnReLU(8, 8, 3, 1, 1))
-        self.conv1 = nn.Sequential(ConvBnReLU(8, 16, 5, 2, 2),
-                                   ConvBnReLU(16, 16, 3, 1, 1))
-        self.conv2 = nn.Sequential(ConvBnReLU(16, 32, 5, 2, 2),
-                                   ConvBnReLU(32, 32, 3, 1, 1))
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.conv0 = nn.Sequential(ConvBnReLU(3, 8, 3, 1, 1, **kw),
+                                   ConvBnReLU(8, 8, 3, 1, 1, **kw))
+        self.conv1 = nn.Sequential(ConvBnReLU(8, 16, 5, 2, 2, **kw),
+                                   ConvBnReLU(16, 16, 3, 1, 1, **kw))
+        self.conv2 = nn.Sequential(ConvBnReLU(16, 32, 5, 2, 2, **kw),
+                                   ConvBnReLU(32, 32, 3, 1, 1, **kw))
         self.toplayer = nn.Conv2d(32, 32, 1)
         self.lat1 = nn.Conv2d(16, 32, 1)
         self.lat0 = nn.Conv2d(8, 32, 1)
@@ -43,10 +47,11 @@ class FeatureNet(nn.Module):
         conv0 = self.conv0(x)
         conv1 = self.conv1(conv0)
         conv2 = self.conv2(conv1)
-        feat2 = self.toplayer(conv2)
-        feat1 = _upsample_add(feat2, self.lat1(conv1))
-        feat0 = _upsample_add(feat1, self.lat0(conv0))
-        feat1 = self.smooth1(feat1)
-        feat0 = self.smooth0(feat0)
+        dt = self.dtype
+        feat2 = conv_bias(self.toplayer, conv2, dt)
+        feat1 = _upsample_add(feat2, conv_bias(self.lat1, conv1, dt))
+        feat0 = _upsample_add(feat1, conv_bias(self.lat0, conv0, dt))
+        feat1 = conv_bias(self.smooth1, feat1, dt)
+        feat0 = conv_bias(self.smooth0, feat0, dt)
         return tuple(f.permute(0, 2, 3, 1).contiguous()
                      for f in (feat2, feat1, feat0))

@@ -7,6 +7,10 @@ decoder stages, ``.0`` for the Linear of a Linear+ReLU), so a reference
 in eval mode. ConvTranspose3d is kernel 3, stride 2, padding 1,
 output_padding 1: it exactly doubles each spatial dim.
 
+The conv blocks take a compute ``dtype`` (``conv_bn``): float32, or the
+bf16 mode of ``compute_dtype: bfloat16``, which casts the computation and
+never the parameters or the BN statistics.
+
 ``convert_sync_bn`` turns every BN of a model into the synced BN of a
 data-parallel run (``SyncBatchNorm2d`` / ``SyncBatchNorm3d``), whose
 training-mode statistics are those of the global batch over all ranks, as
@@ -17,52 +21,143 @@ the JAX package's step computes them on the global batch
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from enerf_tpu_torch.parallel.dist import world_size
 
 
+def conv_in(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``conv`` (a Conv2d, Conv3d or ConvTranspose3d) on ``x`` with its
+    weight (or ``weight``, in its layout) cast to ``dtype`` and the input
+    cast to ``dtype``, without its bias: the output is in ``dtype``."""
+    w = (conv.weight if weight is None else weight).to(dtype)
+    x = x.to(dtype)
+    if isinstance(conv, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, w, None, conv.stride, conv.padding,
+                                  conv.output_padding, conv.groups,
+                                  conv.dilation)
+    return conv._conv_forward(x, w, None)
+
+
+def conv_bias(conv: nn.Module, x: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """A conv with a bias in ``dtype``: the conv rounds to ``dtype``, then
+    the bias is added in ``dtype``, as flax's ``nn.Conv(dtype=...)`` does.
+    In float32, the module's own forward."""
+    if dtype == torch.float32:
+        return conv(x)
+    y = conv_in(conv, x, dtype)
+    return y + conv.bias.to(dtype).view((1, -1) + (1,) * (y.dim() - 2))
+
+
+def fold_bn(conv: nn.Module, bn: nn.modules.batchnorm._BatchNorm
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode BN folded into ``conv``: (weight · s, b) in float32, with
+    s = γ / sqrt(running var + eps) on the output channels and b = β −
+    running mean · s (``enerf_tpu/models/layers.py:_bn_fold``)."""
+    inv = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    bias = bn.bias.float() - bn.running_mean.float() * inv
+    out_dim = 1 if isinstance(conv, nn.ConvTranspose3d) else 0
+    shape = [1] * conv.weight.dim()
+    shape[out_dim] = -1
+    return conv.weight.float() * inv.view(shape), bias
+
+
+def conv_bn(conv: nn.Module, bn: nn.modules.batchnorm._BatchNorm,
+            x: torch.Tensor, dtype: torch.dtype, relu: bool) -> torch.Tensor:
+    """conv → BN (→ ReLU) in the compute type ``dtype``, rounding where the
+    JAX package's layers round (``enerf_tpu/models/layers.py:98-228``).
+
+    float32: the modules' own forwards. Any other type, in training: the
+    conv in ``dtype``, then BN (batch statistics, running statistics
+    updated, the synced BN's merge included) and ReLU in float32, as
+    flax's BN built without a dtype computes. In eval: BN folded into the
+    conv in float32 (``fold_bn``), the folded weight and the bias cast to
+    ``dtype``, the conv, bias add and ReLU in ``dtype``."""
+    if dtype == torch.float32:
+        y = bn(conv(x))
+    elif bn.training:
+        y = bn(conv_in(conv, x, dtype).float())
+    else:
+        w, b = _folded(conv, bn, dtype)
+        y = conv_in(conv, x, dtype, weight=w)
+        y = y + b.view((1, -1) + (1,) * (y.dim() - 2))
+    return torch.relu(y) if relu else y
+
+
+def _folded(conv: nn.Module, bn: nn.modules.batchnorm._BatchNorm,
+            dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fold_bn`` cast to ``dtype``. Where no gradient is recorded it is
+    kept on ``bn`` and made again only when a weight or statistic has
+    changed: a new tensor, or an in-place write (an optimizer step,
+    ``load_state_dict``) that moves its version counter."""
+    if torch.is_grad_enabled():
+        w, b = fold_bn(conv, bn)
+        return w.to(dtype), b.to(dtype)
+    ts = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    key = (dtype, tuple((t.data_ptr(), t._version) for t in ts))
+    cached = getattr(bn, "_fold_cache", None)
+    if cached is None or cached[0] != key:
+        with torch.inference_mode(False):
+            w, b = fold_bn(conv, bn)
+            cached = bn._fold_cache = (key, (w.to(dtype), b.to(dtype)))
+    return cached[1]
+
+
 class ConvBnReLU(nn.Module):
-    """Conv2d(bias=False) + BN + ReLU."""
+    """Conv2d(bias=False) + BN + ReLU, computing in ``dtype``
+    (``conv_bn``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, pad: int = 1):
+                 stride: int = 1, pad: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
                               padding=pad, bias=False)
         self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        return conv_bn(self.conv, self.bn, x, self.dtype, relu=True)
 
 
 class ConvBnReLU3D(nn.Module):
-    """Conv3d(bias=False) + BN + ReLU."""
+    """Conv3d(bias=False) + BN + ReLU, computing in ``dtype``
+    (``conv_bn``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, pad: int = 1):
+                 stride: int = 1, pad: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv = nn.Conv3d(in_ch, out_ch, kernel, stride=stride,
                               padding=pad, bias=False)
         self.bn = nn.BatchNorm3d(out_ch, eps=1e-5)
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        return conv_bn(self.conv, self.bn, x, self.dtype, relu=True)
 
 
 class ConvTransposeBn(nn.Sequential):
     """ConvTranspose3d(k3, s2, p1, output_padding 1, bias=False) + BN:
-    the U-Net decoder stage."""
+    the U-Net decoder stage, computing in ``dtype`` (``conv_bn``)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(
             nn.ConvTranspose3d(in_ch, out_ch, 3, stride=2, padding=1,
                                output_padding=1, bias=False),
             nn.BatchNorm3d(out_ch, eps=1e-5))
+        self.dtype = dtype
+
+    def forward(self, x):
+        return conv_bn(self[0], self[1], x, self.dtype, relu=False)
 
 
 class _SyncBatchNormFn(torch.autograd.Function):

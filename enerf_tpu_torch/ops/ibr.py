@@ -59,13 +59,21 @@ def get_vox_feat_grid(feat_volume: torch.Tensor, d: torch.Tensor,
 
 def get_img_feat(world_xyz: torch.Tensor, img_feat_rgb: torch.Tensor,
                  src_exts: torch.Tensor, src_ixts: torch.Tensor,
-                 tar_ext: torch.Tensor, render_scale: float) -> torch.Tensor:
+                 tar_ext: torch.Tensor, render_scale: float,
+                 table_bf16: bool = False) -> torch.Tensor:
     """Per-source-view projected features + ray-difference geometry.
 
     world_xyz (B, N, n, 3); img_feat_rgb (B, S, H, W, C) (features ‖ rgb);
     src_exts (B, S, 4, 4); src_ixts (B, S, 3, 3); tar_ext (B, 4, 4).
     Returns (B, N*n, S, C+4): per view [feat‖rgb, ray_diff_dir(3), dot(1)].
-    The image sample uses border padding in pixel coordinates."""
+    The image sample uses border padding in pixel coordinates.
+
+    ``table_bf16``: the table ``img_feat_rgb`` (features and rgb) is
+    rounded to bfloat16 and sampled by a float32 lerp, as the JAX package
+    trains in the bf16 mode (``enerf_tpu/ops/sampling.py:268-290``); its
+    gradient is summed in float32 and rounded once, at the table."""
+    if table_bf16:
+        img_feat_rgb = img_feat_rgb.to(torch.bfloat16).float()
     B, N, n, _ = world_xyz.shape
     xyz = world_xyz.reshape(B, N * n, 3)
     tar_cam = cam_centers(tar_ext)                     # (B, 3)

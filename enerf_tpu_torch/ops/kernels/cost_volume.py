@@ -13,6 +13,11 @@ masked cross-view variance Σf²/cnt − (Σf/cnt)². Its crop-window mode
 volume: the same kernel over a fixed-size window whose origin is a device
 tensor.
 
+The features are float32 or bfloat16 (the bf16 compute mode): a
+template of one kernel reads them in their type, computes in float32 and
+rounds once, when it writes the volume in the features' type, as the TPU
+kernel does (``enerf_tpu/ops/pallas/cost_volume.py:58-62,107-119``).
+
 On a CPU tensor ``fused_cost_volume`` runs the plain version; on a CUDA
 tensor it launches the kernel or raises. It refuses inputs that need a
 gradient; the training path calls ``cost_volume_plain``.
@@ -29,12 +34,17 @@ from enerf_tpu_torch.ops.kernels import _build
 from enerf_tpu_torch.ops.sampling import bilinear_sample_2d_multi
 from enerf_tpu_torch.ops.window import Window
 
-# Launches of the CUDA kernel since the last reset (set to 0 to reset).
+# Launches of the CUDA kernel since the last reset (set to 0 to reset):
+# ``launches`` of its float32 variant, ``launches_bf16`` of its bfloat16 one.
 launches = 0
+launches_bf16 = 0
 
 # enerf_cost_volume(feats, proj_mats, depth_values, view_mask, origin, out,
-# B, S, H_s, W_s, C, D, H_t, W_t, h, w, stream)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# B, S, H_s, W_s, C, D, H_t, W_t, h, w, bf16, stream)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# the feature types the kernel takes, each with the alignment its vector
+# loads of 4 channels need
+_ALIGN = {torch.float32: 16, torch.bfloat16: 8}
 
 _C_MAX = 32
 
@@ -92,10 +102,13 @@ def cost_volume_plain(feats: torch.Tensor, proj_mats: torch.Tensor,
                       view_mask: Optional[torch.Tensor] = None,
                       window: CropWindow = None) -> torch.Tensor:
     """The plain PyTorch version: warp coordinates, ``grid_sample`` with
-    zeros padding, masked variance. Arguments as ``fused_cost_volume``.
-    With a window, the depth planes are cut from the window's clamped
-    position and the warp starts at its unclamped origin, as
+    zeros padding, masked variance, in float32 (or the features' wider
+    type), the result in the features' type. Arguments as ``fused_cost_volume``. With a window, the
+    depth planes are cut from the window's clamped position and the warp
+    starts at its unclamped origin, as
     ``enerf_tpu/ops/warp.py:build_cost_volume_crop`` does."""
+    dtype = feats.dtype
+    feats = feats.to(torch.promote_types(dtype, torch.float32))
     B, S, H_s, W_s, C = feats.shape
     xy0 = None
     if window is not None:
@@ -108,7 +121,7 @@ def cost_volume_plain(feats: torch.Tensor, proj_mats: torch.Tensor,
         feats.reshape(B * S, H_s, W_s, C),
         x_src.reshape(B * S, -1), y_src.reshape(B * S, -1),
         padding_mode="zeros").reshape(B, S, D, h, w, C)
-    return masked_variance(warped, view_mask)
+    return masked_variance(warped, view_mask).to(dtype)
 
 
 def fused_cost_volume(feats: torch.Tensor, proj_mats: torch.Tensor,
@@ -117,9 +130,11 @@ def fused_cost_volume(feats: torch.Tensor, proj_mats: torch.Tensor,
                       window: CropWindow = None) -> torch.Tensor:
     """Variance cost volume across source views.
 
-    feats (B, S, H_s, W_s, C) f32 NHWC; proj_mats (B, S, 3, 4);
-    depth_values (B, D, H_t, W_t); view_mask optional (B, S), 1 for real
-    views and 0 for padding. Returns (B, D, H_t, W_t, C) channels-last.
+    feats (B, S, H_s, W_s, C) NHWC, float32 or bfloat16; proj_mats
+    (B, S, 3, 4), depth_values (B, D, H_t, W_t) and view_mask (optional,
+    (B, S), 1 for real views and 0 for padding) float32. Returns
+    (B, D, H_t, W_t, C) channels-last in the features' type; on a CUDA
+    tensor any other feature type raises ``ValueError``.
 
     ``window`` = (xy0, (h, w)): only the (h, w) window of the target frame
     at the per-batch origin xy0 (B, 2) int [x0, y0], a device tensor (the
@@ -140,17 +155,19 @@ def fused_cost_volume(feats: torch.Tensor, proj_mats: torch.Tensor,
 
 
 def _launch(feats, proj_mats, depth_values, view_mask, window):
-    global launches
+    global launches, launches_bf16
     req = _build.require
     B, S, H_s, W_s, C = feats.shape
     D, H_t, W_t = depth_values.shape[1:]
     dev = feats.device
     req(dev.type == "cuda", "cost volume kernel needs a CUDA tensor, got {}",
         dev)
+    req(feats.dtype in _ALIGN, "cost volume kernel takes float32 or bfloat16 "
+        "features, got {}", feats.dtype)
     if view_mask is None:
         view_mask = torch.ones(B, S, dtype=torch.float32, device=dev)
     view_mask = view_mask.to(torch.float32)
-    tensors = [("feats", feats, None, torch.float32),
+    tensors = [("feats", feats, None, feats.dtype),
                ("proj_mats", proj_mats, (B, S, 3, 4), torch.float32),
                ("depth_values", depth_values, (B, D, H_t, W_t), torch.float32),
                ("view_mask", view_mask, (B, S), torch.float32)]
@@ -170,17 +187,23 @@ def _launch(feats, proj_mats, depth_values, view_mask, window):
     req(C % 4 == 0 and 0 < C <= _C_MAX,
         "cost volume kernel takes C a multiple of 4 up to {}, got {}",
         _C_MAX, C)
-    req(feats.data_ptr() % 16 == 0, "feats must be 16-byte aligned")
+    align = _ALIGN[feats.dtype]
+    req(feats.data_ptr() % align == 0, "{} feats must be {}-byte aligned",
+        feats.dtype, align)
     req(B * D * h * w * 8 < 2 ** 31 and B * D <= 65535,
         "cost volume kernel takes fewer than 2^28 voxels in at most 65,535 "
         "planes, got {} in {}", B * D * h * w, B * D)
 
-    out = torch.empty(B, D, h, w, C, dtype=torch.float32, device=dev)
+    bf16 = feats.dtype == torch.bfloat16
+    out = torch.empty(B, D, h, w, C, dtype=feats.dtype, device=dev)
     fn = _build.load_function("cost_volume", "enerf_cost_volume", _ARGTYPES)
     rc = fn(feats.data_ptr(), proj_mats.data_ptr(), depth_values.data_ptr(),
             view_mask.data_ptr(), None if origin is None else origin.data_ptr(),
-            out.data_ptr(), B, S, H_s, W_s, C, D, H_t, W_t, h, w,
+            out.data_ptr(), B, S, H_s, W_s, C, D, H_t, W_t, h, w, int(bf16),
             _build.stream_handle(dev))
     _build.check_rc("cost_volume", rc)
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out

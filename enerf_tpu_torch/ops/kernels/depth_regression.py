@@ -7,8 +7,11 @@ and its ``custom_vjp`` wrapper ``depth_regression_fused``: per pixel over
 the D planes, a softmax of the logits, the expectation of the plane values
 (disparity when ``depth_inv``) and their standard deviation. As in the JAX
 package, the forward is the kernel and the backward recomputes the plain
-version under autograd; inputs are float32 or bfloat16, the arithmetic is
-float32 either way, and the outputs are in the input type.
+version under autograd. The inputs are both float32, both bfloat16, or
+bfloat16 logits with float32 plane values (the bf16 compute mode, where
+the JAX package's depth and std come back float32,
+``enerf_tpu/ops/depth.py:94-112``); the arithmetic is float32 for every
+pair, and the outputs are in the plane values' type.
 
 ``depth_regression`` runs the kernel on a CUDA tensor (or raises) and the
 plain version on a CPU tensor, through its autograd Function.
@@ -23,8 +26,11 @@ import torch
 
 from enerf_tpu_torch.ops.kernels import _build
 
-# Launches of the CUDA kernel since the last reset (set to 0 to reset).
+# Launches of the CUDA kernel since the last reset (set to 0 to reset):
+# ``launches`` of its variants with both inputs of one type, float32 or
+# bfloat16; ``launches_mixed`` of its bfloat16-logits, float32-values one.
 launches = 0
+launches_mixed = 0
 
 WARP = 32                   # pixels a pixel tile, one per lane
 MAX_GROUPS = 32             # warps a block: 1024 threads
@@ -32,9 +38,13 @@ MAX_PLANES_PER_THREAD = 8
 # Warps a block should hold at least: pixel tiles are added to a block of
 # fewer plane groups (one-warp blocks leave level 1 slower).
 BLOCK_WARPS = 4
-_DTYPES = (torch.float32, torch.bfloat16)
+# (logits type, values type) → the C function's ``types`` code
+_TYPES = {(torch.float32, torch.float32): 0,
+          (torch.bfloat16, torch.bfloat16): 1,
+          (torch.bfloat16, torch.float32): 2}
+MIXED = 2
 # enerf_depth_regression(logits, values, depth, std, B, D, H, W, depth_inv,
-# bf16, planes_per_thread, groups, tiles, stream)
+# types, planes_per_thread, groups, tiles, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
@@ -43,9 +53,10 @@ def depth_regression_plain(depth_prob: torch.Tensor,
                            depth_inv: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version (``enerf_tpu/ops/depth.py``'s jnp path,
     in float32 as the TPU kernel computes): softmax over dim 1, optional
-    disparity, central moments; the outputs in ``depth_prob``'s type.
+    disparity, central moments; the outputs in the promoted type of the
+    two inputs (``depth_values``' for the pairs the kernel takes).
     Arguments as ``depth_regression``."""
-    dtype = depth_prob.dtype
+    dtype = torch.promote_types(depth_prob.dtype, depth_values.dtype)
     prob = torch.softmax(depth_prob.float(), dim=1)
     depth_values = depth_values.float()
     if depth_inv:
@@ -84,10 +95,12 @@ def depth_regression(depth_prob: torch.Tensor, depth_values: torch.Tensor,
                      depth_inv: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax-expectation depth + std over the plane axis.
 
-    depth_prob (logits), depth_values (B, D, H, W), both float32 or both
-    bfloat16. With ``depth_inv`` the plane values are converted to
-    disparity first. Returns (depth, std), each (B, H, W) in the input
-    type, in the pdf's native space; differentiable in both inputs."""
+    depth_prob (logits), depth_values (B, D, H, W): both float32, both
+    bfloat16, or bfloat16 logits with float32 values. With ``depth_inv``
+    the plane values are converted to disparity first. Returns (depth,
+    std), each (B, H, W) in the values' type, in the pdf's native space;
+    differentiable in both inputs. On a CUDA tensor any other pair of
+    types raises ``ValueError``."""
     return DepthRegression.apply(depth_prob, depth_values, depth_inv)
 
 
@@ -109,7 +122,7 @@ def plan(D: int, n_pixels: int) -> Tuple[int, int, int, int]:
 
 
 def _launch(depth_prob, depth_values, depth_inv):
-    global launches
+    global launches, launches_mixed
     req = _build.require
     dev = depth_prob.device
     req(dev.type == "cuda", "depth regression kernel needs a CUDA tensor, "
@@ -117,13 +130,14 @@ def _launch(depth_prob, depth_values, depth_inv):
     req(depth_prob.ndim == 4, "depth_prob must be (B, D, H, W), got {}",
         tuple(depth_prob.shape))
     B, D, H, W = depth_prob.shape
-    dtype = depth_prob.dtype
-    req(dtype in _DTYPES, "depth_prob must be float32 or bfloat16, got {}",
-        dtype)
+    types = _TYPES.get((depth_prob.dtype, depth_values.dtype))
+    req(types is not None, "depth regression kernel takes (logits, values) "
+        "of types {}, got ({}, {})", sorted(map(str, _TYPES)),
+        depth_prob.dtype, depth_values.dtype)
+    dtype = depth_values.dtype
     for name, t in (("depth_prob", depth_prob), ("depth_values", depth_values)):
         req(t.device == dev, "{} is on {}, depth_prob on {}", name, t.device,
             dev)
-        req(t.dtype == dtype, "{} is {}, depth_prob {}", name, t.dtype, dtype)
         req(t.is_contiguous(), "{} must be contiguous", name)
         req(tuple(t.shape) == (B, D, H, W), "{} has shape {}, expected {}",
             name, tuple(t.shape), (B, D, H, W))
@@ -135,9 +149,11 @@ def _launch(depth_prob, depth_values, depth_inv):
     fn = _build.load_function("depth_regression", "enerf_depth_regression",
                               _ARGTYPES)
     rc = fn(depth_prob.data_ptr(), depth_values.data_ptr(), depth.data_ptr(),
-            std.data_ptr(), B, D, H, W, int(depth_inv),
-            int(dtype == torch.bfloat16), ppt, groups, tiles,
-            _build.stream_handle(dev))
+            std.data_ptr(), B, D, H, W, int(depth_inv), types, ppt, groups,
+            tiles, _build.stream_handle(dev))
     _build.check_rc("depth_regression", rc)
-    launches += 1
+    if types == MIXED:
+        launches_mixed += 1
+    else:
+        launches += 1
     return depth, std

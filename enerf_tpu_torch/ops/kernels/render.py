@@ -14,6 +14,12 @@ volume, σ = softplus(sigma(lr0([vox, agg]))), the per-view color MLP with a
 masked softmax blend of the source rgb, and alpha compositing
 (α = 1 − exp(−σ), no dists; depth = softmax(weights)·z).
 
+The feature volume is float32 or bfloat16 (the bf16 compute mode, where
+the 3D CNN outputs it in bf16): each kernel is templated on the volume's
+type, converts it to float32 as it samples it, and keeps its float32
+inputs, head and arithmetic, as the TPU kernel reads a bf16 volume and
+f32 head weights (``enerf_tpu/ops/pallas/render.py:195-196,576``).
+
 On a CPU tensor ``render_rays`` runs the plain version; on a CUDA tensor
 it launches the kernel built for the head's shape, or raises. It refuses
 inputs that need a gradient; the training path calls ``render_rays_plain``.
@@ -40,19 +46,23 @@ KERNELS = {(11, 8, 2): ("render", "enerf_render_rays"),
 KERNEL_S = (2, 3, 4)
 
 # Launches since the last reset, by kernel library (``KERNELS``): "render"
-# for csrc/render.cu, "render_l0" for csrc/render_l0.cu. Reset with
-# ``reset_launches()``.
+# for csrc/render.cu, "render_l0" for csrc/render_l0.cu; ``launches`` of
+# their float32-volume variants, ``launches_bf16`` of their bfloat16-volume
+# ones. Reset with ``reset_launches()``.
 launches = {lib: 0 for lib, _ in KERNELS.values()}
+launches_bf16 = {lib: 0 for lib, _ in KERNELS.values()}
+_VOLUME_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for lib in launches:
-        launches[lib] = 0
+    for counts in (launches, launches_bf16):
+        for lib in counts:
+            counts[lib] = 0
 
 
 # enerf_render_rays[_l0](13 pointers, B, N, S, H, W, Dv, Hv, Wv, n_params,
-# white_bkgd, render_scale, stream)
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+# white_bkgd, vol_bf16, render_scale, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -74,19 +84,26 @@ def render_rays_plain(world_xyz: torch.Tensor, uvd: torch.Tensor,
                       src_ixts: torch.Tensor, tar_ext: torch.Tensor,
                       view_mask: Optional[torch.Tensor], head, *,
                       render_scale: float, white_bkgd: bool = False,
-                      grid_hw: Optional[Tuple[int, int]] = None, window=None
-                      ) -> Dict[str, torch.Tensor]:
+                      grid_hw: Optional[Tuple[int, int]] = None, window=None,
+                      table_bf16: bool = False) -> Dict[str, torch.Tensor]:
     """The plain PyTorch version: ``get_img_feat`` + vox features
     (``get_vox_feat_grid`` on grid rays, else ``get_vox_feat``) + the
-    NeRFHead module + ``raw2outputs``. Arguments as ``render_rays``."""
+    NeRFHead module + ``raw2outputs``, in float32 or wider (a bfloat16
+    volume is converted first, as the kernels convert it). Arguments as
+    ``render_rays``; ``table_bf16`` rounds the image table ``img_feat_rgb``
+    to bfloat16 before it is sampled (``get_img_feat``), as training in
+    the bf16 mode does."""
     B, N, n, _ = world_xyz.shape
+    feat_volume = feat_volume.to(torch.promote_types(feat_volume.dtype,
+                                                     torch.float32))
     if grid_hw is not None:
         vox = get_vox_feat_grid(feat_volume, uvd.reshape(B, -1, 3)[..., 2],
                                 grid_hw, window=window)
     else:
         vox = get_vox_feat(uvd.reshape(B, -1, 3), feat_volume)
     img_feat_rgb_dir = get_img_feat(world_xyz, img_feat_rgb, src_exts,
-                                    src_ixts, tar_ext, render_scale)
+                                    src_ixts, tar_ext, render_scale,
+                                    table_bf16=table_bf16)
     raw = head(vox, img_feat_rgb_dir, view_mask).reshape(B, N, n, -1)
     return raw2outputs(raw, z_vals, white_bkgd)
 
@@ -104,7 +121,8 @@ def render_rays(world_xyz: torch.Tensor, uvd: torch.Tensor,
     world_xyz (B, N, n, 3); uvd (B, N, n, 3) normalized to [0, 1] (u, v at
     render scale, d inside the volume bounds); z_vals (B, N, n);
     img_feat_rgb (B, S, H, W, Cf) image features ‖ rgb at render scale;
-    feat_volume (B, D, Hv, Wv, Cv); src_exts (B, S, 4, 4); src_ixts
+    feat_volume (B, D, Hv, Wv, Cv), float32 or bfloat16 (every other input
+    float32; on a CUDA tensor another volume type raises); src_exts (B, S, 4, 4); src_ixts
     (B, S, 3, 3) unscaled; tar_ext (B, 4, 4); view_mask (B, S) or None;
     head the level's NeRFHead. ``grid_hw``: the rays are the (H, W) raster
     grid, or with ``window`` (an ``ops.window.Window`` of that frame) the
@@ -148,6 +166,9 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
     req(dev.type == "cuda", "render kernel needs a CUDA tensor, got {}", dev)
     req(head.viewdir_agg and head.use_vox_feat,
         "render kernel needs a NeRFHead with viewdir_agg and use_vox_feat")
+    req(feat_volume.dtype in _VOLUME_DTYPES, "render kernel takes a float32 "
+        "or bfloat16 feat_volume, got {}", feat_volume.dtype)
+    vol_bf16 = feat_volume.dtype == torch.bfloat16
     if view_mask is None:
         view_mask = torch.ones(B, S, dtype=torch.float32, device=dev)
     view_mask = view_mask.to(torch.float32)
@@ -163,8 +184,8 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
                            ("view_mask", view_mask, (B, S)),
                            ("head params", params, None)):
         req(t.device == dev, "{} is on {}, rays on {}", name, t.device, dev)
-        req(t.dtype == torch.float32, "{} must be float32, got {}", name,
-            t.dtype)
+        req(t.dtype == torch.float32 or t is feat_volume,
+            "{} must be float32, got {}", name, t.dtype)
         req(t.is_contiguous(), "{} must be contiguous", name)
         req(shape is None or tuple(t.shape) == shape,
             "{} has shape {}, expected {}", name, tuple(t.shape), shape)
@@ -179,8 +200,8 @@ def _launch(world_xyz, uvd, z_vals, img_feat_rgb, feat_volume, src_exts,
             src_exts.data_ptr(), src_ixts.data_ptr(), tar_ext.data_ptr(),
             view_mask.data_ptr(), params.data_ptr(), rgb.data_ptr(),
             depth.data_ptr(), weights.data_ptr(), B, N, S, H, W, Dv, Hv, Wv,
-            int(params.numel()), int(white_bkgd), float(render_scale),
-            _build.stream_handle(dev))
+            int(params.numel()), int(white_bkgd), int(vol_bf16),
+            float(render_scale), _build.stream_handle(dev))
     _build.check_rc(kernel[0], rc)
-    launches[kernel[0]] += 1
+    (launches_bf16 if vol_bf16 else launches)[kernel[0]] += 1
     return {"rgb": rgb, "depth": depth, "weights": weights}

@@ -11,6 +11,7 @@ counterpart here.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -37,6 +38,52 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     y = F.interpolate(x, size=(H_out, W_out), mode="bilinear",
                       align_corners=True)
     return y.permute(0, 2, 3, 1).reshape(*lead, H_out, W_out, C)
+
+
+def interp_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """The (out_size, in_size) float32 matrix of a bilinear align-corners
+    resize along one axis (``enerf_tpu/ops/sampling.py:_interp_matrix``)."""
+    A = np.zeros((out_size, in_size), dtype=np.float32)
+    if out_size == 1:
+        A[0, 0] = 1.0
+        return A
+    scale = (in_size - 1) / (out_size - 1)
+    for o in range(out_size):
+        src = o * scale
+        i0 = min(int(np.floor(src)), in_size - 1)
+        i1 = min(i0 + 1, in_size - 1)
+        t = src - i0
+        A[o, i0] += 1.0 - t
+        A[o, i1] += t
+    return A
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_tensor(in_size: int, out_size: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """``interp_matrix`` as a ``dtype`` tensor on ``device``, made once: a
+    normal tensor even when first asked for under ``inference_mode``, so
+    that a training forward can use it too."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(interp_matrix(in_size, out_size)).to(
+            device, dtype)
+
+
+def resize_bilinear_nchw(x: torch.Tensor, out_hw: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """Bilinear align-corners resize of ``x`` (N, C, H, W). In float32,
+    ``F.interpolate``; in a lower type (the bf16 mode), the JAX package's
+    two products with the interpolation matrices, the matrices in ``x``'s
+    type and each product rounded to it (``enerf_tpu/ops/sampling.py:
+    resize_bilinear``)."""
+    if x.dtype == torch.float32:
+        return F.interpolate(x, size=out_hw, mode="bilinear",
+                             align_corners=True)
+    H_in, W_in = x.shape[-2:]
+    Ah, Aw = (_interp_tensor(i, o, x.dtype, x.device)
+              for i, o in zip((H_in, W_in), out_hw))
+    x = torch.einsum("oh,nchw->ncow", Ah, x)
+    return torch.einsum("pw,ncow->ncop", Aw, x)
 
 
 def _norm(p: torch.Tensor, size: int) -> torch.Tensor:

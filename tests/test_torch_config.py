@@ -4,10 +4,12 @@ the JAX package reads them, mapped to the port's classes by
 ``enerf_tpu_torch.factory``; and the human and composite eval
 configurations as ``bench.py`` defines them."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import bench
 from enerf_tpu.config import make_cfg as j_make_cfg
@@ -104,9 +106,10 @@ def test_unknown_network_module_raises():
 
 @pytest.mark.parametrize("where", ["yaml", "command_line"])
 def test_compute_dtype_other_than_float32_raises(where, tmp_path):
-    """The port computes in float32 only: a ``compute_dtype`` of bfloat16,
-    from a YAML file or from the command line, raises and names the
-    queued bf16 mode; ``float32`` loads as before."""
+    """``compute_dtype``, from a YAML file or from the command line:
+    ``bfloat16`` loads (the bf16 compute mode, and a network that computes
+    in it), ``float32`` loads as before, and any other type raises
+    ``ValueError`` naming the two."""
     base = str(REPO / "configs" / "enerf" / "dtu_pretrain.yaml")
 
     def load(dtype):
@@ -116,9 +119,14 @@ def test_compute_dtype_other_than_float32_raises(where, tmp_path):
         path.write_text(f"parent_cfg: {base}\ncompute_dtype: {dtype}\n")
         return make_cfg(str(path))
 
-    with pytest.raises(ValueError, match="Queue 1, item 4"):
-        load("bfloat16")
+    cfg = load("bfloat16")
+    assert cfg.compute_dtype == "bfloat16"
+    assert cfg == dataclasses.replace(make_cfg(base), compute_dtype="bfloat16")
+    assert make_network(cfg).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        load("float16")
     assert load("float32") == make_cfg(base)
+    assert make_cfg(base).compute_dtype == "float32"
 
 
 def test_bench_workload_configs():

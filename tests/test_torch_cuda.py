@@ -439,6 +439,182 @@ def test_depth_regression_kernel_shapes_and_bf16(cuda, B, D, Hv, Wv, dtype,
         torch.testing.assert_close(a, b, **tol_s)
 
 
+# --- the bf16 variants (compute_dtype: bfloat16) ---------------------------
+
+# K1 in bf16: the kernel and the plain version each round an f32 variance
+# once; the f32 values differ as K1's f32 ones do (grid_sample's normalized
+# coordinates, chip_smoke.py's K1_TOL atol), so a rounding may fall on
+# either side: one bf16 ulp (at most 2^-7 of the value) beside that atol
+_K1_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,n_src,window", [
+    (0, 3, None), (1, 3, None), (1, 2, None),
+    (1, 3, ([(40, 20)], (16, 24))),         # crop mode, across the edges
+    (0, 2, ([(-3, 2)], (5, 7))),            # a negative origin, ragged
+])
+def test_cost_volume_bf16_kernel_matches_plain(cuda, level, n_src, window):
+    """K1's bf16 variant (bf16 features, f32 planes and cameras, a bf16
+    volume), full frame and crop mode, vs the plain version on the same
+    bf16 features; counted in ``launches_bf16`` only."""
+    g = torch.Generator().manual_seed(30 + level + n_src)
+    b = _batch(n_src, cuda)
+    C, s, vs, D = ((32, 0.25, 0.125, 48), (16, 0.5, 0.5, 8))[level]
+    feats = torch.randn(1, 3, int(H * s), int(W * s), C, generator=g).to(
+        cuda, torch.bfloat16)
+    projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
+                          b["tar_ixt"], src_scale=s, tar_scale=vs)
+    dv, _ = init_depth_values(b["near_far"], D, int(H * vs), int(W * vs),
+                              level == 0)
+    kw = {}
+    if window is not None:
+        kw["window"] = (torch.tensor(window[0], dtype=torch.int32).to(cuda),
+                        window[1])
+    args = (feats, projs, dv, b["view_mask"])
+    before = (kcv.launches, kcv.launches_bf16)
+    out = kcv.fused_cost_volume(*args, **kw)
+    assert (kcv.launches, kcv.launches_bf16) == (before[0], before[1] + 1)
+    ref = kcv.cost_volume_plain(*args, **kw)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), **_K1_BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level,n_src", [(1, 3), (1, 2), (0, 3), (0, 2)])
+def test_render_bf16_volume_kernel_matches_plain(cuda, level, n_src):
+    """K2's and K2-L0's bf16-volume variants vs the plain version on the
+    same bf16 volume (both turn it into f32: K2_TOL, as in f32); counted in
+    ``launches_bf16`` only."""
+    args, kw = (_render_case(cuda, n_src) if level == 1
+                else _render_l0_case(cuda, n_src, seed=7))
+    args = (*args[:4], args[4].to(torch.bfloat16), *args[5:])
+    kernel = "render" if level == 1 else "render_l0"
+    with torch.no_grad():
+        before = dict(krender.launches), dict(krender.launches_bf16)
+        out = krender.render_rays(*args, **kw)
+        assert krender.launches == before[0]
+        assert krender.launches_bf16 == {k: v + (k == kernel)
+                                         for k, v in before[1].items()}
+        plain = krender.render_rays_plain(*args, **kw)
+    for k in ("rgb", "depth", "weights"):
+        assert out[k].dtype == torch.float32
+        torch.testing.assert_close(out[k], plain[k], rtol=1e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,Hv,Wv,depth_inv", [
+    (1, 48, 16, 20, True),     # level 0's planes
+    (1, 8, 64, 96, False),     # level 1's
+    (2, 5, 7, 13, False),      # a batch, a ragged pixel count
+])
+def test_depth_regression_mixed_kernel_matches_plain(cuda, B, D, Hv, Wv,
+                                                     depth_inv):
+    """K4's mixed variant: bf16 logits, f32 plane values, f32 depth and
+    std, read without a cast on the host; forward and gradient vs the
+    plain version at the f32 tolerance (both compute in f32 from the same
+    values); counted in ``launches_mixed`` only."""
+    g = torch.Generator().manual_seed(40 + D)
+    logits = (2.0 * torch.randn(B, D, Hv, Wv, generator=g)).to(
+        cuda, torch.bfloat16)
+    values = torch.sort(2.0 + 4.0 * torch.rand(B, D, Hv, Wv, generator=g),
+                        dim=1).values.to(cuda)
+    before = (kdr.launches, kdr.launches_mixed)
+    out = kdr.depth_regression(logits, values, depth_inv)
+    assert (kdr.launches, kdr.launches_mixed) == (before[0], before[1] + 1)
+    plain = kdr.depth_regression_plain(logits, values, depth_inv)
+    for o, p in zip(out, plain):
+        assert o.dtype == p.dtype == torch.float32
+        torch.testing.assert_close(o, p, rtol=1e-4, atol=1e-6)
+    grads = []
+    for fn in (kdr.depth_regression, kdr.depth_regression_plain):
+        lt, vt = logits.clone().requires_grad_(), values.clone().requires_grad_()
+        d, s = fn(lt, vt, depth_inv)
+        grads.append(torch.autograd.grad((d * 1.3 + s * 0.7).sum(), (lt, vt)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-2, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_types_no_variant_takes(cuda):
+    """On the card a type no variant takes raises, launches nothing and
+    does not fall back: float16 features (K1) and volume (K2); f32 logits
+    with bf16 values and float16 logits (K4)."""
+    b = _batch(3, cuda)
+    projs = get_proj_mats(b["src_exts"], b["src_ixts"], b["tar_ext"],
+                          b["tar_ixt"], src_scale=0.5, tar_scale=0.5)
+    dv, _ = init_depth_values(b["near_far"], 8, H // 2, W // 2, False)
+    feats = torch.randn(1, 3, H // 2, W // 2, 16, device=cuda)
+    counts = lambda: (kcv.launches, kcv.launches_bf16,  # noqa: E731
+                      dict(krender.launches), dict(krender.launches_bf16),
+                      kdr.launches, kdr.launches_mixed)
+    before = counts()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kcv.fused_cost_volume(feats.half(), projs, dv, b["view_mask"])
+    args, kw = _render_case(cuda, 3)
+    with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
+        krender.render_rays(*args[:4], args[4].half(), *args[5:], **kw)
+    logits = torch.randn(1, 8, 4, 6, device=cuda)
+    for lt, vt in ((logits, dv[:, :, :4, :6].contiguous().bfloat16()),
+                   (logits.half(), dv[:, :, :4, :6].contiguous())):
+        with pytest.raises(ValueError, match="takes"):
+            kdr.depth_regression(lt, vt, False)
+    assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["dtu", "human", "composite"])
+def test_bf16_frame_kernel_vs_plain_path(cuda, monkeypatch, variant):
+    """A frame in the bf16 mode at 128x160 through ``build_model`` /
+    ``render``: it launches the bf16 variants only (K1-bf16, K2-bf16,
+    K4-mixed), and matches the bf16 plain path (tolerances of
+    ``tests/test_torch_enerf.py`` doubled: the variance and the 3D CNN
+    round to bf16, so a kernel's f32 reassociation may flip a rounding)."""
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import (
+        composite_eval_config,
+        human_eval_config,
+        human_mask,
+    )
+    from enerf_tpu_torch.datasets.synthetic import make_composite_batch
+
+    Hs, Ws = 128, 160
+    if variant == "dtu":
+        cfg = dtu_eval_config()
+        batch = make_synthetic_batch(cfg, H=Hs, W=Ws)
+        per_frame = (2, 1, 2)
+    elif variant == "human":
+        cfg = human_eval_config()
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, mask_window_hw=(96, 96)))
+        batch = make_synthetic_batch(cfg, H=Hs, W=Ws)
+        batch["mask_at_box"] = human_mask(Hs, Ws)
+        per_frame = (2, 1, 2)
+    else:
+        cfg = composite_eval_config()
+        cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+            cfg.enerf, fg_bbox_hw=(64, 64)))
+        batch = make_composite_batch(cfg, H=Hs, W=Ws)
+        per_frame = (4, 0, 4)
+    model = et.build_model(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                           seed=3)
+    f32_counts = lambda: (kcv.launches, krender.launches["render"],  # noqa: E731
+                          kdr.launches)
+    counts = lambda: (kcv.launches_bf16,  # noqa: E731
+                      krender.launches_bf16["render"], kdr.launches_mixed)
+    before, before32 = counts(), f32_counts()
+    out = et.render(model, batch)
+    assert tuple(a - b for a, b in zip(counts(), before)) == per_frame
+    assert f32_counts() == before32
+    _plain_path(monkeypatch)
+    ref = et.render(model, batch)
+    assert set(out) == set(ref)
+    for k in out:
+        assert out[k].dtype == torch.float32
+        atol = 6e-3 if k.startswith(("depth", "std")) else 6e-4
+        torch.testing.assert_close(out[k], ref[k], rtol=2e-3, atol=atol)
+
+
 @pytest.mark.cuda
 def test_train_step_on_card(cuda):
     """One train step of the two-level cascade at 64x96 on the card: the

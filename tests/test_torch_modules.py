@@ -6,7 +6,8 @@ the BN leaves cannot hide behind mean 0 / var 1) carried across by
 
 Tolerance: each module alone, f32 on both sides — rtol 1e-4, atol 1e-4,
 the class of ``tests/test_convert.py`` (conv reassociation between XLA's
-and PyTorch's CPU convolutions; the eval-BN fold on the JAX side)."""
+and PyTorch's CPU convolutions; the eval-BN fold on the JAX side). Also
+the bf16 mode's cached eval BN fold against the weights' changes."""
 
 import jax
 import jax.numpy as jnp
@@ -94,6 +95,50 @@ def test_feature_net():
         out = port(torch.from_numpy(x))
     for o, r in zip(out, ref):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), **TOL)
+
+
+def test_feature_net_bf16_eval_fold_follows_the_weights():
+    """The bf16 mode's eval BN fold (``models/layers.py:_folded``), kept
+    between forwards that record no gradient, is made again when a weight
+    or a running statistic changes in place (an optimizer step,
+    ``load_state_dict``): the outputs equal those of a model built afresh
+    with the new state. A forward that records a gradient folds afresh
+    and reaches the weights; the FPN's interpolation matrices, first made
+    under ``inference_mode``, serve a training forward and its
+    backward."""
+    torch.manual_seed(0)
+    x = torch.rand(2, 32, 48, 3)
+    net, other = (FeatureNet(dtype=torch.bfloat16).eval() for _ in range(2))
+
+    def outputs(model):
+        with torch.inference_mode():
+            return [o.clone() for o in model(x)]
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    before = outputs(net)
+    assert same(before, outputs(net))
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.add_(0.1)
+    after = outputs(net)
+    assert not same(before, after)
+    fresh = FeatureNet(dtype=torch.bfloat16).eval()
+    fresh.load_state_dict(net.state_dict())
+    assert same(after, outputs(fresh))
+    net.load_state_dict(other.state_dict())
+    assert same(outputs(net), outputs(other))
+
+    sum(o.float().sum() for o in net(x)).backward()
+    assert net.conv0[0].conv.weight.grad.abs().sum() > 0
+    net.zero_grad()
+    net.train()
+    sum(o.float().sum() for o in net(x)).backward()
+    assert net.conv0[0].conv.weight.grad.abs().sum() > 0
 
 
 @pytest.mark.parametrize("net", ["min", "full"])
