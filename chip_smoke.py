@@ -145,10 +145,23 @@ Phases, each printing one JSON line:
            running statistics; each rank's step ms and all-reduce share)
            and the ray-split 512x640 DTU frame vs ``render`` (launches a
            rank K1 2, K2 1, K4 2)
+  extras   the modules outside the frame paths: the zoo (ResUnet on
+           3x512x640, CNNRender on 512x640, MinCostRegNetTri on level 1's
+           (1, 8, 256, 320, 8) volume, MVSNeRFHead on 327,680 rays x 2
+           samples x 3 views, the layered and dists compositing, the
+           plane and shell samplers, the SH bases, homo_warp at level 0)
+           on the card vs their CPU forward on the same weights (CUDA
+           event ms, max abs error); extract_mesh of an analytic field
+           queried on the card at N = 256 vs the same extraction queried
+           on the CPU (query ms, marching ms); gui_human.run_gui on the
+           interactive scene through stub glfw / OpenGL.GL modules
+           (``stub_gl_modules``): 12 frames, launches a frame K1 2, K4 2,
+           render 1, the last texture vs the headless frame at its pose,
+           the loop's fps, draw_hud's ms
   profiler_lead  the lead-in records every profiler session lost
 then a ``{"kernels": [...]}`` line (each kernel's launches on every main
 path: frames, human, composite, val, run_dtu, run_zjumocap, run_outdoor,
-interactive, visualize, train, train_cli, ddp; its calls of a human, a
+interactive, visualize, train, train_cli, ddp, extras; its calls of a human, a
 composite and a val frame in ``per_frame_by_path``; the bf16 variants as
 entries of their own, launched on the bf16 paths), the nvidia-smi line,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure exits
@@ -2903,6 +2916,390 @@ def phase_interactive(torch, smi_line: str) -> dict:
     return rec["launches"]
 
 
+# glfw's constants (the values of glfw 3's C header)
+GLFW_CONSTANTS = dict(
+    CONTEXT_VERSION_MAJOR=0x22002, CONTEXT_VERSION_MINOR=0x22003,
+    OPENGL_PROFILE=0x22008, OPENGL_COMPAT_PROFILE=0x32002,
+    RELEASE=0, PRESS=1, REPEAT=2, MOUSE_BUTTON_LEFT=0, MOUSE_BUTTON_RIGHT=1,
+    MOUSE_BUTTON_MIDDLE=2, MOD_SHIFT=1, MOD_CONTROL=2, KEY_SPACE=32,
+    KEY_MINUS=45, KEY_EQUAL=61, KEY_A=65, KEY_D=68, KEY_E=69, KEY_H=72,
+    KEY_P=80, KEY_Q=81, KEY_S=83, KEY_T=84, KEY_W=87, KEY_ESCAPE=256)
+
+
+def stub_gl_modules(frames: int, events=None, init_ok: bool = True):
+    """Stand-ins for the ``glfw`` and ``OpenGL.GL`` modules (built as
+    ``types.ModuleType`` objects, nothing imported) for ``run_gui`` without
+    a display: the window closes after ``frames`` swapped frames or when
+    the GUI asks; ``events[i]`` (a list of ("key", key, action, mods),
+    ("mouse", button, action, mods), ("cursor", x, y) or ("scroll", dy))
+    runs through the GUI's callbacks at the i-th ``poll_events``;
+    ``glfw.init()`` returns ``init_ok``. Returns (glfw, gl, record):
+    ``record["frames"]`` holds a copy of every ``glTexSubImage2D`` buffer,
+    ``record["titles"]`` the window titles."""
+    import types
+
+    record = {"frames": [], "titles": [], "polls": 0, "swaps": 0,
+              "close": False, "terminated": 0}
+    cb, cursor = {}, [0.0, 0.0]
+    glfw = types.ModuleType("glfw")
+    for k, v in GLFW_CONSTANTS.items():
+        setattr(glfw, k, v)
+
+    def poll_events():
+        for ev in (events or {}).get(record["polls"], []):
+            if ev[0] == "key":
+                cb["key"]("win", ev[1], 0, ev[2], ev[3])
+            elif ev[0] == "mouse":
+                cb["mouse"]("win", ev[1], ev[2], ev[3])
+            elif ev[0] == "cursor":
+                cursor[:] = ev[1:]
+                cb["cursor"]("win", *ev[1:])
+            else:
+                cb["scroll"]("win", 0.0, ev[1])
+        record["polls"] += 1
+
+    def swap_buffers(_w):
+        record["swaps"] += 1
+
+    def terminate():
+        record["terminated"] += 1
+
+    def set_close(_w, value):
+        record["close"] = bool(value)
+
+    glfw.init = lambda: init_ok
+    glfw.window_hint = lambda *a: None
+    glfw.create_window = lambda w, h, title, mon, share: "win"
+    glfw.make_context_current = lambda w: None
+    glfw.terminate = terminate
+    glfw.get_cursor_pos = lambda w: tuple(cursor)
+    glfw.set_window_should_close = set_close
+    glfw.window_should_close = lambda w: (record["close"]
+                                          or record["swaps"] >= frames)
+    glfw.poll_events = poll_events
+    glfw.swap_buffers = swap_buffers
+    glfw.set_window_title = lambda w, t: record["titles"].append(t)
+    for name, key in (("mouse_button", "mouse"), ("cursor_pos", "cursor"),
+                      ("scroll", "scroll"), ("key", "key")):
+        setattr(glfw, f"set_{name}_callback",
+                lambda w, fn, key=key: cb.__setitem__(key, fn))
+
+    gl = types.ModuleType("OpenGL.GL")
+    for i, name in enumerate((
+            "GL_TEXTURE_2D", "GL_RGB8", "GL_RGB", "GL_UNSIGNED_BYTE",
+            "GL_TEXTURE_MAG_FILTER", "GL_TEXTURE_MIN_FILTER", "GL_NEAREST",
+            "GL_READ_FRAMEBUFFER", "GL_COLOR_ATTACHMENT0",
+            "GL_COLOR_BUFFER_BIT", "GL_DEPTH_BUFFER_BIT", "GL_LINEAR")):
+        setattr(gl, name, 0x1000 + i)
+    for name in ("glBindTexture", "glTexImage2D", "glTexParameteri",
+                 "glBindFramebuffer", "glFramebufferTexture2D", "glClear",
+                 "glBlitFramebuffer"):
+        setattr(gl, name, lambda *a: None)
+    gl.glGenTextures = lambda n: 1
+    gl.glGenFramebuffers = lambda n: 1
+
+    def tex_sub_image(target, level, x, y, w, h, fmt, typ, data):
+        record["frames"].append(np.array(data, np.uint8).reshape(h, w, 3))
+
+    gl.glTexSubImage2D = tex_sub_image
+    return glfw, gl, record
+
+
+@contextlib.contextmanager
+def stub_gl(glfw, gl):
+    """``glfw`` and ``OpenGL.GL`` in ``sys.modules`` for the block (and
+    whatever stood there before restored after it)."""
+    import types
+
+    opengl = types.ModuleType("OpenGL")
+    opengl.GL = gl
+    new = {"glfw": glfw, "OpenGL": opengl, "OpenGL.GL": gl}
+    old = {k: sys.modules.get(k) for k in new}
+    sys.modules.update(new)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+# the zoo on the card vs its own CPU forward: the networks' convs and
+# matmuls sum in other orders on the two (TF32 off); the ops differ by the
+# last bits of CUDA's and the CPU's exp / sqrt / arcsin
+ZOO_NET_TOL = dict(rtol=1e-3, atol=1e-4)
+ZOO_OP_TOL = dict(rtol=1e-4, atol=1e-5)
+# the shell sampler's theta is arcsin(x) / 2 pi with |x| up to 1, whose
+# slope turns the last bit of x (6e-8) into up to sqrt(2 * 6e-8) / 2 pi =
+# 5.5e-5
+ZOO_SPHERE_TOL = dict(rtol=1e-4, atol=2e-4)
+MESH_N = 256                   # enerf_tpu/utils/mesh.py's default grid
+MESH_FALLBACK_N = 128
+MESH_LIMIT_S = 60.0
+GUI_FRAMES = 12
+
+
+def _zoo_cases(torch):
+    """(name, module or None, fn, inputs on the CPU, tolerance): the zoo
+    networks and ops at the DTU 512x640 frame's shapes, seeded."""
+    from enerf_tpu_torch.models.cost_reg import MinCostRegNetTri
+    from enerf_tpu_torch.models.feature_net import CNNRender
+    from enerf_tpu_torch.models.nerf_head import MVSNeRFHead
+    from enerf_tpu_torch.models.res_unet import ResUnet
+    from enerf_tpu_torch.ops import composite, rays, sh, warp
+
+    g = torch.Generator().manual_seed(13)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g)
+
+    P = H * W                                   # level 1 renders every pixel
+    torch.manual_seed(13)
+    nets = [("res_unet", ResUnet(), (rand(3, H, W, 3),)),
+            ("cnn_render", CNNRender(), (rand(1, H, W, 3),)),
+            ("cost_reg_tri", MinCostRegNetTri(8),
+             (rand(1, 8, H // 2, W // 2, 8, lo=-1.0),)),
+            ("mvsnerf_head", MVSNeRFHead(11, 3),
+             (rand(1, P * 2, 8, lo=-1.0), rand(1, P * 2, 3, 15, lo=-1.0)))]
+    cases = []
+    for i, (name, net, args) in enumerate(nets):
+        randomize_bn_stats(torch, net, 100 + i)
+        cases.append((name, net.eval(), None, args, ZOO_NET_TOL))
+
+    def raw(n):
+        r = rand(1, P, n, 4)
+        r[..., 3] = 2.0 * torch.randn(1, P, n, generator=g).abs()
+        return r
+
+    z2 = [rand(1, P, 2, lo=2.0, hi=6.0) for _ in range(2)]
+    z32 = torch.sort(rand(1, P, 32, lo=2.0, hi=6.0), dim=-1).values
+    ray8 = torch.cat([rand(1, P, 3, lo=-0.5, hi=0.5),
+                      torch.randn(1, P, 3, generator=g), rand(1, P, 2)], -1)
+    dirs = torch.nn.functional.normalize(torch.randn(1, P, 3, generator=g),
+                                         dim=-1)
+    proj = torch.tensor([[1.02, 0.01, -3.0, 20.0], [0.005, 0.98, 2.0, -15.0],
+                         [1e-5, 2e-5, 1.0, 0.05]])
+    ops = [
+        ("raw2outputs_layer", lambda a, b, c, d: composite.raw2outputs_layer(
+            [a, b], [c, d]), (raw(2), raw(2), *z2)),
+        ("raw2outputs_ngp", composite.raw2outputs_ngp,
+         (raw(32), z32, ray8[..., 3:6])),
+        ("sample_points_on_plane", rays.sample_points_on_plane, (ray8,)),
+        ("sample_points_along_sphere", rays.sample_points_along_sphere,
+         (ray8 + torch.tensor([4.0, 0, 0, 0, 0, 0, 0, 0]),)),
+        *[(f"eval_sh_bases_{n}", functools.partial(sh.eval_sh_bases, n),
+           (dirs,)) for n in (9, 16, 25)],
+        # level 0's warp: 32 FPN channels at 1/4, 48 planes
+        ("homo_warp", warp.homo_warp,
+         (rand(H // 4, W // 4, 32, lo=-1.0), proj,
+          rand(48, H // 4, W // 4, lo=425.0, hi=905.0)))]
+    cases += [(name, None, fn, args, ZOO_SPHERE_TOL if "sphere" in name
+               else ZOO_OP_TOL) for name, fn, args in ops]
+    return cases
+
+
+def _outputs(out) -> list:
+    if isinstance(out, dict):
+        return [(k, v) for k, v in out.items()]
+    if isinstance(out, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(out)]
+    return [("out", out)]
+
+
+def extras_zoo(torch) -> list:
+    """Each zoo network and op on the card vs its own CPU forward on the
+    same weights and inputs: CUDA-event ms (median of 10) and the max abs
+    error of every output."""
+    rows = []
+    with torch.inference_mode():
+        for name, net, fn, args, tol in _zoo_cases(torch):
+            cpu_out = (net or fn)(*args)
+            dev_args = [a.cuda() for a in args]
+            call = net.cuda() if net is not None else fn
+            out = call(*dev_args)
+            errs = {k: max_err(torch, v.cpu(), dict(_outputs(cpu_out))[k],
+                               tol["rtol"], tol["atol"],
+                               f"extras {name} {k} card vs CPU")
+                    for k, v in _outputs(out)}
+            ms = time_ms(torch, lambda: call(*dev_args), reps=10, warmup=2)
+            rows.append({"name": name, "device_ms": ms["median"],
+                         "device_ms_min": ms["min"], "max_abs_err": errs,
+                         "shapes": [list(a.shape) for a in args], "tol": tol})
+            del cpu_out, out, dev_args
+            if net is not None:
+                net.cpu()
+            torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_field(torch, xyz):
+    """A seeded analytic density: the larger of two ellipsoids' 1 - r^2,
+    by multiplications, subtractions and a maximum only, which round alike
+    on the card and the CPU."""
+    out = None
+    for c, k in (((0.12, -0.2, 0.05), (1.6, 2.1, 1.3)),
+                 ((-0.3, 0.25, -0.1), (2.4, 1.7, 2.9))):
+        q = None
+        for d in range(3):
+            t = (xyz[:, d:d + 1] - c[d]) * k[d]
+            q = t * t if q is None else q + t * t
+        q = 1.0 - q
+        out = q if out is None else torch.maximum(out, q)
+    return out
+
+
+def extras_mesh(torch) -> dict:
+    """``extract_mesh`` with ``mesh_field`` queried on the card at N = 256
+    (128 where 256 takes more than a minute): the query's ms on the card
+    (its own loop, batches of 8192 as extract_mesh queries them, each
+    density back on the host), marching tetrahedra's ms on the host, and
+    the extraction's vertices and faces vs the same extraction queried on
+    the CPU."""
+    import tempfile
+
+    from enerf_tpu_torch.utils.mesh import extract_mesh, marching_tetrahedra
+
+    bbox = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])
+    rec = {}
+    for N in (MESH_N, MESH_FALLBACK_N):
+        axes = [np.linspace(-1.0, 1.0, N)] * 3
+        xyz = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+        t0 = time.perf_counter()
+        dens = []
+        with torch.inference_mode():
+            for i in range(0, len(xyz), 8192):
+                pts = torch.from_numpy(xyz[i:i + 8192].astype(np.float32))
+                dens.append(mesh_field(torch, pts.cuda()).cpu().numpy()[:, 0])
+        query_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verts, faces = marching_tetrahedra(np.concatenate(dens).reshape(
+            N, N, N), 0.5, [2.0 / (N - 1)] * 3)
+        march_s = time.perf_counter() - t0
+        rec = {"N": N, "query_ms": 1e3 * query_s, "marching_ms": 1e3 * march_s,
+               "points": len(xyz), "verts": len(verts), "faces": len(faces)}
+        if query_s + march_s <= MESH_LIMIT_S:
+            break
+        rec_256 = rec
+        rec = {}
+    if not rec:
+        fail("extras: the mesh took more than a minute at N = 128 too")
+    if rec["N"] != MESH_N:
+        rec["why_not_256"] = (f"N = 256 took {rec_256['query_ms']:.0f} ms of "
+                              f"query and {rec_256['marching_ms']:.0f} ms of "
+                              f"marching, past {MESH_LIMIT_S:.0f} s")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[dev] = extract_mesh(lambda p: mesh_field(torch, p), 0.5, bbox,
+                                    f"{tmp}/{dev}.ply", N=rec["N"], device=dev)
+            rec[f"extract_{dev}_ms"] = 1e3 * (time.perf_counter() - t0)
+    for a, b, what in zip(got["cuda"], got["cpu"], ("vertices", "faces")):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"extras: mesh {what} queried on the card {a.shape} differ "
+                 f"from the CPU's {b.shape}")
+    if not 1000 < len(got["cuda"][1]):
+        fail(f"extras: the mesh has {len(got['cuda'][1])} faces")
+    rec["verts_equal_cpu"] = rec["faces_equal_cpu"] = True
+    return rec
+
+
+def extras_gui(torch) -> dict:
+    """``gui_human.run_gui`` on ``phase_interactive``'s renderer and scene
+    through ``stub_gl_modules`` (12 frames; the panel on for frames 0-5,
+    H at frame 6 turns it off; moves, a drag and the rail's keys before
+    that): launches a frame, the loop's fps, ``draw_hud``'s ms on a
+    512x512 frame; the last texture upload vs the headless loop's u8 frame
+    at the same pose and frame, flipped."""
+    from enerf_tpu_torch import gui_human, native
+    from enerf_tpu_torch.config import make_cfg
+
+    cfg = make_cfg(str(ROOT / "configs/enerf/interactive/zjumocap.yaml"),
+                   ["workspace", str(ROOT / "build" / "video_fixture"),
+                    *VIDEO_FRAMES_OPT])
+    rend = gui_human.Renderer(cfg)
+    k = GLFW_CONSTANTS
+    events = {2: [("key", k["KEY_W"], k["PRESS"], 0),
+                  ("key", k["KEY_A"], k["REPEAT"], 0)],
+              3: [("cursor", 100.0, 100.0),
+                  ("mouse", k["MOUSE_BUTTON_LEFT"], k["PRESS"], 0),
+                  ("cursor", 140.0, 120.0),
+                  ("mouse", k["MOUSE_BUTTON_LEFT"], k["RELEASE"], 0)],
+              4: [("scroll", 1.0), ("key", k["KEY_T"], k["PRESS"], 0),
+                  ("key", k["KEY_T"], k["PRESS"], 0),
+                  ("key", k["KEY_T"], k["PRESS"], 0),
+                  ("key", k["KEY_T"], k["PRESS"], 0)],
+              5: [("key", k["KEY_P"], k["PRESS"], 0),
+                  ("key", k["KEY_EQUAL"], k["PRESS"], 0)],
+              6: [("key", k["KEY_H"], k["PRESS"], 0)]}
+    poses = []
+    render_next = rend.render_next
+
+    def recorded():
+        poses.append((rend.iter, rend.cam.get_c2w(), rend.cam.get_w2c()))
+        return render_next()
+
+    rend.render_next = recorded
+    glfw, gl, rec = stub_gl_modules(GUI_FRAMES, events)
+    reset_launches()
+    t0 = time.perf_counter()
+    with stub_gl(glfw, gl):
+        gui_human.run_gui(rend)
+    loop_s = time.perf_counter() - t0
+    launches = read_launches()
+    expect = {kk: v * GUI_FRAMES for kk, v in HUMAN_PER_FRAME.items()}
+    if launches != expect or len(rec["frames"]) != GUI_FRAMES:
+        fail(f"extras: the GUI loop launched {launches} over "
+             f"{len(rec['frames'])} frames, expected {expect}")
+    if rend.opt.show_hud or rend.opt.type != 0 or not rend.cam.on_cam_path:
+        fail("extras: the GUI's keys did not set the options")
+    # the headless loop's frame at the last frame's pose
+    it, c2w, w2c = poses[-1]
+    rend.render_next = render_next
+    rend.iter = it
+    rend.cam.get_c2w, rend.cam.get_w2c = (lambda: c2w), (lambda: w2c)
+    want = native.f32_unit_to_u8(rend.render_next())[::-1]
+    got = rec["frames"][-1]
+    diff = int((got != want).any(-1).sum()) if got.shape == want.shape else -1
+    if diff:
+        fail(f"extras: the GUI's last texture {got.shape} differs from the "
+             f"headless frame {want.shape} at {diff} pixels")
+    hud_in = native.f32_unit_to_u8(np.zeros((512, 512, 3), np.float32))
+    hud_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        gui_human.draw_hud(hud_in.copy(), rend)
+        hud_ms.append(1e3 * (time.perf_counter() - t0))
+    hud_pixels = int((gui_human.draw_hud(hud_in.copy(), rend) != 0).any(-1)
+                     .sum())
+    return {"window": "stub", "frames": GUI_FRAMES, "frame_hw": list(got.shape),
+            "loop_fps": GUI_FRAMES / loop_s,
+            "steady_fps": rend.fps, "launches": launches,
+            "launches_per_frame": {kk: v / GUI_FRAMES
+                                   for kk, v in launches.items()},
+            "draw_hud_ms": statistics.median(hud_ms),
+            "hud_pixels": hud_pixels, "last_frame_vs_headless_pixels": diff,
+            "polls": rec["polls"]}
+
+
+def phase_extras(torch, smi_line: str) -> dict:
+    """The modules outside the frame paths (the last slice of the port):
+    the zoo networks and ops on the card vs the CPU, the mesh extractor's
+    query on the card, and the windowed GUI's loop through stub glfw and
+    OpenGL modules (the card machine has no display). Returns the GUI
+    loop's launches."""
+    zoo = extras_zoo(torch)
+    mesh = extras_mesh(torch)
+    gui = extras_gui(torch)
+    emit("extras", zoo=zoo, mesh=mesh, gui=gui, tf32=(
+        torch.backends.cuda.matmul.allow_tf32,
+        torch.backends.cudnn.allow_tf32), nvidia_smi=smi_line)
+    return gui["launches"]
+
+
 def phase_visualize(torch, smi_line: str) -> dict:
     """The video main path: ``enerf_tpu_torch.run``'s ``main`` with ``--type
     visualize`` on configs/enerf/enerf_outdoor/actor1_path.yaml over
@@ -3463,6 +3860,7 @@ def main() -> None:
     del state, step, train_batch
     paths["train_cli"] = run_phase("train_cli", phase_train_cli, smi_line)
     paths["ddp"] = run_phase("ddp", phase_ddp, torch, smi_line)
+    paths["extras"] = run_phase("extras", phase_extras, torch, smi_line)
     emit("profiler_lead", lead_launches=LEAD_LAUNCHES,
          sessions=len(LEAD_LOST), max_lost=max(n for _, n in LEAD_LOST),
          sessions_with_loss=sum(n > 0 for _, n in LEAD_LOST),

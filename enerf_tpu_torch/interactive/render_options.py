@@ -1,8 +1,7 @@
 """GUI render-option state (reference lib/interactive/render_options.py);
 counterpart of ``enerf_tpu/interactive/render_options.py``: a dot-access
-dict with the per-scene window sizes and the render-type mapping. The
-JAX package's ``show_hud`` (its windowed GUI's on-screen panel) is left
-out: the port has only the headless loop."""
+dict with the per-scene window sizes, the render-type mapping and the
+on-screen panel's switch."""
 
 from __future__ import annotations
 
@@ -28,4 +27,7 @@ def make_options(cfg) -> DotDict:
         opt.window_hw = [512, 512]
     opt.autoplay = True
     opt.smoothing_term = 0.1
+    # the on-screen state panel (``gui_human.draw_hud``; it replaces the
+    # reference's imgui widgets, gui_human.py:123-197)
+    opt.show_hud = True
     return opt

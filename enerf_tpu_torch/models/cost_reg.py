@@ -1,5 +1,6 @@
 """3D cost-volume regularization U-Nets; counterpart of
-``enerf_tpu/models/cost_reg.py`` (``CostRegNet``, ``MinCostRegNet``).
+``enerf_tpu/models/cost_reg.py`` (``CostRegNet``, ``MinCostRegNet``,
+``MinCostRegNetTri``).
 
 Input: the variance volume (B, D, H, W, C) channels-last, read by the
 Conv3d stack as an NCDHW view with ``channels_last_3d`` strides (no copy).
@@ -17,6 +18,7 @@ _dual_head``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from enerf_tpu_torch.models.layers import (
@@ -85,4 +87,36 @@ class MinCostRegNet(nn.Module):
         conv4 = self.conv4(self.conv3(conv2))
         x = conv2 + self.conv9(conv4)
         x = conv0 + self.conv11(x)
+        return _heads(x, self.feat_conv, self.depth_conv, self.dtype)
+
+
+class MinCostRegNetTri(nn.Module):
+    """MinCostRegNet with trilinear (align_corners) upsampling and a
+    ConvBnReLU3D in place of each transposed-conv stage (reference
+    cost_reg_net_.py:52-95; not on the stock forward path)."""
+
+    def __init__(self, in_ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        kw = dict(dtype=dtype)
+        self.conv0 = ConvBnReLU3D(in_ch, 8, **kw)
+        self.conv1 = ConvBnReLU3D(8, 16, stride=2, **kw)
+        self.conv2 = ConvBnReLU3D(16, 16, **kw)
+        self.conv3 = ConvBnReLU3D(16, 32, stride=2, **kw)
+        self.conv4 = ConvBnReLU3D(32, 32, **kw)
+        self.conv9 = ConvBnReLU3D(32, 16, **kw)
+        self.conv11 = ConvBnReLU3D(16, 8, **kw)
+        self.feat_conv = nn.Sequential(nn.Conv3d(8, 8, 3, padding=1, bias=False))
+        self.depth_conv = nn.Sequential(nn.Conv3d(8, 1, 3, padding=1, bias=False))
+
+    def forward(self, volume: torch.Tensor):
+        def up2(v):
+            return F.interpolate(v, scale_factor=2.0, mode="trilinear",
+                                 align_corners=True)
+
+        conv0 = self.conv0(volume.permute(0, 4, 1, 2, 3))
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = conv2 + self.conv9(up2(conv4))
+        x = conv0 + self.conv11(up2(x))
         return _heads(x, self.feat_conv, self.depth_conv, self.dtype)

@@ -1,5 +1,5 @@
-"""2D FPN feature extractor; counterpart of
-``enerf_tpu/models/feature_net.py``.
+"""2D FPN feature extractor and the CNNRender refinement head;
+counterpart of ``enerf_tpu/models/feature_net.py``.
 
 conv0 8ch@1x → conv1 16ch@1/2 → conv2 32ch@1/4; 1x1 laterals to 32ch;
 top-down upsample-add (bilinear, align_corners); smooth convs. Takes and
@@ -55,3 +55,27 @@ class FeatureNet(nn.Module):
         feat0 = conv_bias(self.smooth0, feat0, dt)
         return tuple(f.permute(0, 2, 3, 1).contiguous()
                      for f in (feat2, feat1, feat0))
+
+
+class CNNRender(nn.Module):
+    """Residual 2D refinement of a rendered image (reference
+    feature_net.py:38-54; not on the stock forward path): conv0 8ch@1x,
+    conv1 16ch@1/2, upsample-add of a 1x1 lateral of conv0, a 1x1 conv to
+    rgb, added to the input and clipped to [0, 1]."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv0 = ConvBnReLU(3, 8, 3, 1, 1, dtype=dtype)
+        self.conv1 = ConvBnReLU(8, 16, 5, 2, 2, dtype=dtype)
+        self.conv2 = nn.Conv2d(8, 16, 1)
+        self.conv3 = nn.Conv2d(16, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, H, W, 3) -> (N, H, W, 3) contiguous."""
+        x = x.permute(0, 3, 1, 2)
+        conv0 = self.conv0(x)
+        conv2 = _upsample_add(self.conv1(conv0),
+                              conv_bias(self.conv2, conv0, self.dtype))
+        out = conv_bias(self.conv3, conv2, self.dtype) + x
+        return torch.clamp(out, 0.0, 1.0).permute(0, 2, 3, 1).contiguous()

@@ -33,15 +33,17 @@ from enerf_tpu_torch.parallel.dist import world_size
 
 def conv_in(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
             weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``conv`` (a Conv2d, Conv3d or ConvTranspose3d) on ``x`` with its
-    weight (or ``weight``, in its layout) cast to ``dtype`` and the input
-    cast to ``dtype``, without its bias: the output is in ``dtype``."""
+    """``conv`` (a Conv2d, Conv3d, ConvTranspose2d or ConvTranspose3d) on
+    ``x`` with its weight (or ``weight``, in its layout) cast to ``dtype``
+    and the input cast to ``dtype``, without its bias: the output is in
+    ``dtype``."""
     w = (conv.weight if weight is None else weight).to(dtype)
     x = x.to(dtype)
-    if isinstance(conv, nn.ConvTranspose3d):
-        return F.conv_transpose3d(x, w, None, conv.stride, conv.padding,
-                                  conv.output_padding, conv.groups,
-                                  conv.dilation)
+    if isinstance(conv, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        fn = (F.conv_transpose2d if isinstance(conv, nn.ConvTranspose2d)
+              else F.conv_transpose3d)
+        return fn(x, w, None, conv.stride, conv.padding, conv.output_padding,
+                  conv.groups, conv.dilation)
     return conv._conv_forward(x, w, None)
 
 

@@ -1,5 +1,5 @@
 """IBR shading head; counterpart of ``enerf_tpu/models/nerf_head.py``
-(``Agg``, ``NeRFHead``). This is the plain version of the head part of the
+(``Agg``, ``NeRFHead``, and the MVSNeRF baseline head ``MVSNeRFHead``). This is the plain version of the head part of the
 fused render kernel (``ops/kernels/render.py``).
 
 Agg pools per-view features (view-direction gating, unbiased var + mean
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from enerf_tpu_torch.models.layers import LinearReLU
@@ -102,4 +103,44 @@ class NeRFHead(nn.Module):
                        img_feat_rgb_dir], dim=-1)
         color_weight = _masked_softmax(self.color(x), vm, dim=-2)
         color = torch.sum(img_feat_rgb_dir[..., -7:-4] * color_weight, dim=-2)
+        return torch.cat([color, sigma], dim=-1)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` computing in ``dtype`` (flax's ``nn.Dense(dtype=...)``)."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class MVSNeRFHead(nn.Module):
+    """MVSNeRF-style baseline head (reference nerf.py:91-126; not on the
+    stock forward path): the views' features concatenated view-major, a
+    sigmoid colour MLP, no image-based blending. ``feat_ch`` counts the
+    image channels of a view (FPN features + rgb), ``n_views`` the views."""
+
+    def __init__(self, feat_ch: int, n_views: int, hid_n: int = 64,
+                 vox_ch: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.lr0 = LinearReLU(vox_ch + n_views * feat_ch, hid_n)
+        self.sigma = nn.Sequential(nn.Linear(hid_n, 1), nn.Softplus())
+        self.color = nn.Sequential(nn.Linear(hid_n, hid_n), nn.ReLU(),
+                                   nn.Linear(hid_n, 3), nn.Sigmoid())
+
+    def forward(self, vox_feat: torch.Tensor, img_feat_rgb_dir: torch.Tensor,
+                view_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """vox_feat (B, P, vox_ch); img_feat_rgb_dir (B, P, S, feat_ch + 4)
+        (the 4 direction channels are not read); ``view_mask`` is accepted
+        and not read, as in the JAX package. Returns (B, P, 4) = rgb ‖
+        sigma."""
+        B, P, S, C = img_feat_rgb_dir.shape
+        img_feat = img_feat_rgb_dir[..., :-4].reshape(B, P, S * (C - 4))
+        dt = self.dtype
+        x = torch.relu(_linear(self.lr0[0], torch.cat([vox_feat, img_feat],
+                                                      dim=-1), dt))
+        sigma = F.softplus(_linear(self.sigma[0], x, dt))
+        h = torch.relu(_linear(self.color[0], x, dt))
+        color = torch.sigmoid(_linear(self.color[2], h, dt))
         return torch.cat([color, sigma], dim=-1)

@@ -93,6 +93,7 @@ def _load() -> Optional[ctypes.CDLL]:
         st = ctypes.c_size_t
         lib.u8_to_unit_f32.argtypes = [u8p, f32p, st]
         lib.u8_to_pm1_f32.argtypes = [u8p, f32p, st]
+        lib.u8_to_pm1_masked_f32.argtypes = [u8p, u8p, f32p, st, st, st]
         lib.f32_scale_offset.argtypes = [f32p, f32p, st,
                                          ctypes.c_float, ctypes.c_float]
         lib.u8_rgba_over_white_f32.argtypes = [u8p, f32p, st]
@@ -110,6 +111,7 @@ def _load() -> Optional[ctypes.CDLL]:
                                     ctypes.c_int, ctypes.c_int, u8p, st]
         lib.jpeg_encode.restype = st
         for fn in (lib.u8_to_unit_f32, lib.u8_to_pm1_f32,
+                   lib.u8_to_pm1_masked_f32,
                    lib.f32_scale_offset, lib.u8_rgba_over_white_f32,
                    lib.f32_unit_to_u8,
                    lib.collate_f32, lib.pfm_flip_downsample_f32):
@@ -162,6 +164,24 @@ def u8_to_pm1(img: np.ndarray) -> np.ndarray:
         return _scale_offset_f32(img, 2.0 / 255.0, -1.0)
     out = np.empty(img.shape, np.float32)
     lib.u8_to_pm1_f32(_u8p(img), _f32p(out), img.size)
+    return out
+
+
+def u8_to_pm1_masked(img: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """u8 (H, W, C) image + u8 (H, W) mask -> f32 in [-1, 1] with the
+    mask == 0 pixels at -1 (the zeroed-then-normalized value), one pass."""
+    lib = _load()
+    if lib is None or img.dtype != np.uint8 or mask.dtype != np.uint8 \
+            or not (img.flags.c_contiguous and mask.flags.c_contiguous):
+        out = np.asarray(img, dtype=np.float32) * np.float32(2.0 / 255.0) \
+            - np.float32(1.0)
+        out[np.asarray(mask) == 0] = -1.0
+        return out
+    h, w, c = img.shape
+    if mask.shape != (h, w):
+        raise ValueError(f"mask {mask.shape} for an image of {img.shape}")
+    out = np.empty(img.shape, np.float32)
+    lib.u8_to_pm1_masked_f32(_u8p(img), _u8p(mask), _f32p(out), h, w, c)
     return out
 
 

@@ -29,6 +29,22 @@ void u8_to_pm1_f32(const uint8_t* src, float* dst, size_t n) {
   for (size_t i = 0; i < n; ++i) dst[i] = src[i] * k - 1.0f;
 }
 
+// u8 HxWxC image + u8 HxW mask -> float32 in [-1, 1] with the mask == 0
+// pixels at -1 (the zeroed u8 pixel, normalized), one pass (ZJU-MoCap's
+// img[mask == 0] = 0 then normalize; reference
+// lib/datasets/zjumocap/enerf.py:152).
+void u8_to_pm1_masked_f32(const uint8_t* src, const uint8_t* mask,
+                          float* dst, size_t h, size_t w, size_t c) {
+  constexpr float k = 2.0f / 255.0f;
+  for (size_t p = 0; p < h * w; ++p) {
+    const uint8_t m = mask[p];
+    for (size_t ch = 0; ch < c; ++ch) {
+      const size_t i = p * c + ch;
+      dst[i] = m ? (src[i] * k - 1.0f) : -1.0f;
+    }
+  }
+}
+
 // float32 [0, 1] image -> u8 with clamp, one pass (the video frames and
 // the saved result images). Truncating, not rounding: the reference's
 // (img * 255).astype(uint8) after a clip, as enerf_tpu/native computes it.

@@ -1,5 +1,7 @@
 """Alpha compositing of per-sample radiance; counterpart of
-``_exclusive_cumprod`` and ``raw2outputs`` in ``enerf_tpu/ops/composite.py``.
+``enerf_tpu/ops/composite.py`` (reference lib/networks/enerf/utils.py:
+488-603: raw2outputs and its two variants, which the stock forward does not
+use).
 
 ENeRF's peculiarities: alpha = 1 - exp(-sigma) with **no dists term**
 (samples are depth-guided), and the depth map is softmax(weights)·z, not
@@ -36,4 +38,55 @@ def raw2outputs(raw: torch.Tensor, z_vals: Optional[torch.Tensor],
                                  * z_vals.detach(), dim=-1)
     if white_bkgd:
         out["rgb"] = rgb_map + (1.0 - torch.sum(weights, dim=-1)[..., None])
+    return out
+
+
+def _composite(raw: torch.Tensor, z_vals: torch.Tensor, alpha: torch.Tensor,
+               white_bkgd: bool) -> Dict[str, torch.Tensor]:
+    """rgb as Σ weights·rgb and depth as Σ weights·z (z held constant)."""
+    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
+    rgb_map = torch.sum(weights[..., None] * raw[..., :3], dim=-2)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - torch.sum(weights, dim=-1)[..., None])
+    return {"rgb": rgb_map,
+            "depth": torch.sum(weights * z_vals.detach(), dim=-1),
+            "weights": weights}
+
+
+def raw2outputs_ngp(raw: torch.Tensor, z_vals: torch.Tensor,
+                    raydir: torch.Tensor, white_bkgd: bool = False,
+                    n_samples: int = 32) -> Dict[str, torch.Tensor]:
+    """The variant with a dists term (reference utils.py:488-525): alpha =
+    1 - exp(-sigma · dist), the dists along the ray in world units; with
+    more than ``n_samples`` samples the leading ones take dist 1. raw (...,
+    n, 4), z_vals (..., n), raydir (..., 3). Returns {'rgb', 'depth',
+    'weights'}, depth as Σ weights·z."""
+    dists_z = z_vals * torch.linalg.norm(raydir, dim=-1, keepdim=True)
+    dists = dists_z[..., 1:] - dists_z[..., :-1]
+    dists = torch.cat([dists, dists[..., -1:]], dim=-1)
+    total = dists.shape[-1]
+    if total > n_samples:
+        lead = torch.arange(total, device=dists.device) < total - n_samples
+        dists = torch.where(lead, torch.ones_like(dists), dists)
+    alpha = 1.0 - torch.exp(-raw[..., 3] * dists)
+    return _composite(raw, z_vals, alpha, white_bkgd)
+
+
+def raw2outputs_layer(net_outputs, z_vals_list, white_bkgd: bool = False
+                      ) -> Dict[str, torch.Tensor]:
+    """Multi-layer compositing in z order (reference utils.py:527-568).
+
+    net_outputs: list of (..., n_i, 4); z_vals_list: list of (..., n_i).
+    The layers' samples are merged and sorted by z (a stable sort, as
+    ``jnp.argsort``: samples of two layers can tie in z), then composited.
+    Returns {'rgb', 'depth', 'weights', 'idx', 'net_output', 'z_vals'}, the
+    last two unsorted."""
+    raw = torch.cat(list(net_outputs), dim=-2)
+    z = torch.cat(list(z_vals_list), dim=-1)
+    idx = torch.argsort(z, dim=-1, stable=True)
+    z_sorted = torch.take_along_dim(z, idx, dim=-1)
+    raw_sorted = torch.take_along_dim(raw, idx[..., None], dim=-2)
+    alpha = 1.0 - torch.exp(-raw_sorted[..., 3])
+    out = _composite(raw_sorted, z_sorted, alpha, white_bkgd)
+    out.update(idx=idx, net_output=raw, z_vals=z)
     return out

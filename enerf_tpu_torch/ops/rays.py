@@ -1,5 +1,7 @@
-"""Depth-guided ray construction and sampling; counterpart of
-``enerf_tpu/ops/rays.py``.
+"""Depth-guided ray construction and sampling, and the plane and shell
+samplers that the stock forward does not use; counterpart of
+``enerf_tpu/ops/rays.py`` (reference lib/networks/enerf/utils.py:390-441,
+730-794).
 
 Ray layout (12 channels):
     ray_o(3) | ray_d(3) | uv(2) | ray_near, ray_far(2) | vol_near, vol_far(2)
@@ -8,6 +10,8 @@ Ray layout (12 channels):
 from __future__ import annotations
 
 from typing import Tuple
+
+import math
 
 import torch
 
@@ -85,3 +89,57 @@ def sample_along_depth(rays: torch.Tensor, n_samples: int, depth_inv: bool
     uvd = torch.cat([uv[..., None, :].expand(*world_xyz.shape[:-1], 2),
                      d[..., None]], dim=-1)
     return world_xyz, uvd, z_vals
+
+
+def sample_points_on_plane(rays: torch.Tensor, n_samples: int = 32,
+                           bounds=((-4.0, -4.0, -0.2), (4.0, 4.0, 0.2))
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slab sampling between two z-planes (reference utils.py:730-745).
+    rays (..., >=6) o|dir. Returns (points normalized into ``bounds``
+    (..., n, 3), z_vals (..., n))."""
+    bounds = torch.as_tensor(bounds, dtype=rays.dtype, device=rays.device)
+    ray_o_z = rays[..., 2]
+    ray_d_z = rays[..., 5]
+    # the two clamps of a near-zero z direction, in the reference's order
+    ray_d_z = torch.where((ray_d_z > -1e-5) & (ray_d_z < 1e-10),
+                          torch.full_like(ray_d_z, -1e-5), ray_d_z)
+    ray_d_z = torch.where((ray_d_z < 1e-5) & (ray_d_z > -1e-10),
+                          torch.full_like(ray_d_z, 1e-5), ray_d_z)
+    near = (bounds[1, 2] - ray_o_z) / ray_d_z
+    far = (bounds[0, 2] - ray_o_z) / ray_d_z
+    lin = torch.linspace(0.0, 1.0, n_samples, dtype=rays.dtype,
+                         device=rays.device)
+    z_vals = near[..., None] + (far - near)[..., None] * lin
+    pts = rays[..., None, :3] + rays[..., None, 3:6] * z_vals[..., None]
+    return (pts - bounds[0]) / (bounds[1] - bounds[0]), z_vals
+
+
+def sample_points_along_sphere(rays: torch.Tensor, n_samples: int = 32,
+                               r1: float = 3.0, r2: float = 4.0
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sampling through the cylindrical shell r1 < |xy| < r2 (reference
+    utils.py:765-794). rays (..., >=6) o|dir. Returns ((theta, radial, z)
+    coordinates (..., n, 3), z_vals (..., n))."""
+    o = rays[..., :2]
+    d = rays[..., 3:5]
+    d_norm = torch.linalg.norm(d, dim=-1)
+    d_n = d / d_norm[..., None]
+    x1 = -torch.sum(o * d_n, dim=-1)
+    x2_2 = torch.clamp(torch.sum(o * o, dim=-1) - x1 * x1, 1e-6,
+                       r1 ** 2 - 1e-4)
+    x3 = torch.sqrt(r1 ** 2 - x2_2)
+    x4 = torch.sqrt(r2 ** 2 - x2_2)
+    near = (x1 + x3) / d_norm
+    far = (x1 + x4) / d_norm
+    lin = torch.linspace(0.0, 1.0, n_samples, dtype=rays.dtype,
+                         device=rays.device)
+    z_vals = near[..., None] + (far - near)[..., None] * lin
+    pts = rays[..., None, :3] + rays[..., None, 3:6] * z_vals[..., None]
+    xy = pts[..., :2]
+    xy_n = xy / torch.linalg.norm(xy, dim=-1, keepdim=True)
+    theta = torch.where(xy_n[..., 1] >= 0, torch.arcsin(xy_n[..., 0]),
+                        math.pi - torch.arcsin(xy_n[..., 0]))
+    theta = (theta + math.pi / 2.0) / (2 * math.pi)
+    yy = (torch.linalg.norm(pts[..., :2], dim=-1) - r1 + 0.1) / (r2 - r1 + 0.2)
+    zz = (pts[..., 2] + 0.2) / 2.4
+    return torch.stack([theta, yy, zz], dim=-1), z_vals

@@ -11,17 +11,27 @@ which is also the port's parameter name, with the layout transposes:
 - Conv2d  kernel (kh, kw, in, out)        → (out, in, kh, kw)
 - Conv3d  kernel (kd, kh, kw, in, out)    → (out, in, kd, kh, kw)
 - ConvT3d kernel (kd, kh, kw, out, in)    → (in, out, kd, kh, kw)
+- flax's nn.ConvTranspose (kh, kw, in, out), which does not flip its
+  kernel                                  → (in, out, kh, kw) flipped in space
 - Linear  kernel (in, out)                → (out, in)
 - BN scale / bias / mean / var            → weight / bias / running_mean / running_var
+
+Which stages are transposed convs is a property of the network, not of
+the flax names (the decoder stages ``conv9`` / ``conv11`` are transposed
+convs in ``MinCostRegNet`` and plain ones in ``MinCostRegNetTri``):
+``load_flax_variables`` reads it from the port's module; without a module
+the stage names ``conv7`` / ``conv9`` / ``conv11`` are transposed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import AbstractSet, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from enerf_tpu_torch.models.layers import ConvTransposeBn
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
@@ -37,29 +47,47 @@ def _seq_name(seg: str) -> str:
     return seg
 
 
-def torch_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+def torch_key(path: Tuple[str, ...],
+              convt_stages: Optional[AbstractSet[str]] = None,
+              flax_convt: AbstractSet[str] = frozenset()) -> Tuple[str, str]:
     """Map a flax tree path (module names + leaf, collection dropped) to a
     reference state-dict key and a transform tag
-    ('conv' | 'convT3d' | 'linear' | 'bn' | 'bias' | 'raw')."""
+    ('conv' | 'convT3d' | 'flax_convT' | 'linear' | 'bn' | 'bias' | 'raw').
+
+    ``convt_stages``: the port's dotted names of its ConvTransposeBn
+    stages (None: any stage named conv7, conv9 or conv11); ``flax_convt``:
+    those of its ConvTranspose2d modules that hold a flax nn.ConvTranspose
+    kernel."""
     parts = list(path)
     leaf = parts.pop()
     out: list = []
     transform = None
+
+    def is_stage():
+        if convt_stages is None:
+            return bool(out) and out[-1] in _CONVT_STAGES
+        return ".".join(out) in convt_stages
+
     i = 0
     while i < len(parts):
         seg = parts[i]
         prev = out[-1] if out else ""
         if seg == "bn_wrap":
             # bn_wrap/bn → bn (ConvBnReLU) or .1 (ConvTransposeBn Sequential)
-            if prev in _CONVT_STAGES:
+            if is_stage():
                 out[-1] = f"{prev}.1"
             else:
                 out.append("bn")
             transform = "bn"
             i += 2
             continue
+        if seg == "bn" and i + 1 == len(parts):
+            # the JAX BatchNorm wrapper used on its own: <name>/bn → <name>
+            transform = "bn"
+            i += 1
+            continue
         if seg == "conv" and i + 1 == len(parts):
-            if prev in _CONVT_STAGES:
+            if is_stage():
                 out[-1] = f"{prev}.0"
                 transform = "convT3d"
             else:
@@ -90,6 +118,8 @@ def torch_key(path: Tuple[str, ...]) -> Tuple[str, str]:
             p in _DENSE_NAMES for p in path):
         transform = "linear"
     key = ".".join(out)
+    if key in flax_convt and leaf == "kernel":
+        transform = "flax_convT"
     if transform == "bn":
         return f"{key}.{_BN_LEAVES[leaf]}", "bn"
     if leaf == "kernel":
@@ -109,6 +139,8 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
 
 
 def _to_torch_layout(arr: np.ndarray, transform: str) -> np.ndarray:
+    if transform == "flax_convT":           # (kh, kw, in, out), no flip
+        return arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if arr.ndim == 4:                       # conv2d (kh, kw, in, out)
         return arr.transpose(3, 2, 0, 1)
     if arr.ndim == 5:                       # conv3d / convT3d
@@ -118,13 +150,17 @@ def _to_torch_layout(arr: np.ndarray, transform: str) -> np.ndarray:
     return arr
 
 
-def flax_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+def flax_state_dict(variables: Mapping,
+                    convt_stages: Optional[AbstractSet[str]] = None,
+                    flax_convt: AbstractSet[str] = frozenset()
+                    ) -> Dict[str, np.ndarray]:
     """The JAX variables (nested dict of arrays, collections at the top) as a
-    reference-named state dict in torch layouts."""
+    reference-named state dict in torch layouts (``torch_key``'s
+    ``convt_stages`` and ``flax_convt``)."""
     out: Dict[str, np.ndarray] = {}
     for coll, tree in variables.items():
         for path, arr in _leaves(tree):
-            key, transform = torch_key(path)
+            key, transform = torch_key(path, convt_stages, flax_convt)
             out[key] = np.array(_to_torch_layout(arr, transform), order="C")
     return out
 
@@ -138,7 +174,11 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     top-level submodules the JAX model never ran (e.g. ``nerf_0`` when
     level 0 is not rendered: flax creates no variables for it), plus BN's
     ``num_batches_tracked``."""
-    sd = flax_state_dict(variables)
+    mods = dict(module.named_modules())
+    sd = flax_state_dict(
+        variables,
+        {n for n, m in mods.items() if isinstance(m, ConvTransposeBn)},
+        {n for n, m in mods.items() if isinstance(m, nn.ConvTranspose2d)})
     own = module.state_dict()
     unknown = sorted(set(sd) - set(own))
     if unknown:

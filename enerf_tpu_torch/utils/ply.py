@@ -1,7 +1,8 @@
-"""PLY vertex reader; the part of ``enerf_tpu/utils/ply.py`` the datasets
-use (the reference loads ``background.ply`` point clouds through trimesh,
-enerf_outdoor/enerf.py:68). Reads ascii and binary_little_endian vertex
-elements with float x, y, z properties."""
+"""PLY vertex reader and triangle-mesh writer; counterpart of
+``enerf_tpu/utils/ply.py`` (the reference loads ``background.ply`` point
+clouds and writes meshes through trimesh, enerf_outdoor/enerf.py:68,
+mesh_utils.py:43-45). Reads ascii and binary_little_endian vertex elements
+with float x, y, z properties; writes binary_little_endian meshes."""
 
 from __future__ import annotations
 
@@ -13,6 +14,24 @@ _NP = {"float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
        "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
        "short": "i2", "ushort": "u2", "int": "i4", "uint": "u4",
        "int32": "i4", "uint32": "u4"}
+
+
+def save_ply_mesh(path: str, vertices: np.ndarray,
+                  faces: np.ndarray) -> None:
+    """Write a binary_little_endian triangle mesh: float32 x, y, z vertices
+    and uchar-counted int32 faces (the JAX package's bytes)."""
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {len(vertices)}\n".encode())
+        f.write(b"property float x\nproperty float y\nproperty float z\n")
+        f.write(f"element face {len(faces)}\n".encode())
+        f.write(b"property list uchar int vertex_indices\nend_header\n")
+        f.write(np.asarray(vertices).astype("<f4").tobytes())
+        tri = np.empty((len(faces), 13), np.uint8)
+        tri[:, 0] = 3
+        tri[:, 1:] = np.asarray(faces).astype("<i4").view(np.uint8).reshape(
+            len(faces), 12)
+        f.write(tri.tobytes())
 
 
 def load_ply_vertices(path: str) -> np.ndarray:

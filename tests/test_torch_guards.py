@@ -1,8 +1,9 @@
 """Guards of the port's contract: it never imports JAX or the JAX package
-(nor PyYAML, OpenCV, imageio, Pillow, tqdm, glfw or OpenGL, which it does
-without), its entry points never drop to the CPU on their own, its kernel
-wrappers never fall back, and its own copies of the config and
-synthetic-data modules equal the JAX package's."""
+(nor PyYAML, OpenCV, imageio, Pillow or tqdm, which it does without, nor
+glfw or OpenGL outside the windowed GUI's ``run_gui``), its entry points
+never drop to the CPU on their own, its kernel wrappers never fall back,
+and its own copies of the config and synthetic-data modules equal the JAX
+package's."""
 
 import ast
 import dataclasses
@@ -86,6 +87,13 @@ def test_no_jax_import_in_subprocess():
         "import enerf_tpu_torch.eval.visualizer_interactive\n"
         "import enerf_tpu_torch.datasets.zjumocap_interactive\n"
         "import enerf_tpu_torch.parallel, enerf_tpu_torch.graft_entry\n"
+        "import enerf_tpu_torch.utils.img, enerf_tpu_torch.utils.labels\n"
+        "import enerf_tpu_torch.utils.colmap, enerf_tpu_torch.utils.mesh\n"
+        "import enerf_tpu_torch.utils.profiling\n"
+        "import enerf_tpu_torch.utils.val_data, enerf_tpu_torch.utils.rend\n"
+        "import enerf_tpu_torch.utils.geometry, enerf_tpu_torch.ops.sh\n"
+        "import enerf_tpu_torch.models.res_unet\n"
+        "import enerf_tpu_torch.interactive.font\n"
         "from enerf_tpu_torch.config import make_cfg\n"
         "make_cfg('configs/enerf/dtu_pretrain.yaml')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -98,31 +106,47 @@ def test_no_jax_import_in_subprocess():
     assert "LOADED []" in res.stdout, res.stdout
 
 
+# the windowed GUI's modules, imported where they are used and nowhere else
+GUI_ONLY = ("glfw", "OpenGL")
+GUI_SITE = ("enerf_tpu_torch/gui_human.py", "run_gui")
+
+
 def _imports(path: Path):
-    """The module named by every import statement, lazy ones included."""
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            yield node.module or ""
+    """(module, enclosing top-level function or None) for every import
+    statement, lazy ones included."""
+    tree = ast.parse(path.read_text())
+    for top in tree.body:
+        func = top.name if isinstance(top, ast.FunctionDef) else None
+        for node in ast.walk(top):
+            if isinstance(node, ast.Import):
+                yield from ((a.name, func) for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                yield node.module or "", func
 
 
 def test_no_jax_import_in_sources():
     """No module of the package, and not ``chip_smoke.py`` (its ``run_dtu``
     phase included), names JAX, flax or enerf_tpu in an import statement,
-    lazy imports included; none imports PyYAML, OpenCV, imageio, Pillow or
-    tqdm."""
+    lazy imports included; none imports PyYAML, OpenCV, imageio, Pillow,
+    tqdm, glfw or OpenGL, but for glfw and OpenGL inside
+    ``gui_human.run_gui``, the windowed GUI, which needs them and imports
+    them when it opens its window."""
     paths = sorted((REPO / "enerf_tpu_torch").rglob("*.py"))
     paths.append(REPO / "chip_smoke.py")
+    gui_imports = []
     for path in paths:
         rel = str(path.relative_to(REPO))
-        for name in _imports(path):
+        for name, func in _imports(path):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, (rel, name)
+            if root in GUI_ONLY and (rel, func) == GUI_SITE:
+                gui_imports.append(name)
+                continue
             assert root not in UNNEEDED, (rel, name)
+    assert sorted(gui_imports) == ["OpenGL.GL", "glfw"], gui_imports
     smoke = (REPO / "chip_smoke.py").read_text()
     for phase in ("run_dtu", "jpeg", "run_zjumocap", "run_outdoor",
-                  "train_cli", "interactive", "visualize", "ddp"):
+                  "train_cli", "interactive", "visualize", "ddp", "extras"):
         assert f"def phase_{phase}" in smoke, phase
 
 

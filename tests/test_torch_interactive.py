@@ -261,19 +261,25 @@ def test_headless_loop_matches_jax(jax_renderer, scene, tmp_path):
     assert len(frames) == 2 and frames[0].shape == (64, 64, 3)
 
 
-def test_gui_cli_headless_only(scene, tmp_path, capsys):
-    """``python -m enerf_tpu_torch.gui_human`` without ``--headless`` exits
-    with a usage error naming the windowed GUI as not ported; with
-    ``--headless 1 --device cpu`` it runs in a fresh interpreter without
-    loading JAX, OpenCV, imageio, Pillow, PyYAML, glfw or OpenGL (tqdm is
-    loaded by torch.hub where it is installed; no module of the port
-    imports it, ``tests/test_torch_guards.py``)."""
+def test_gui_cli_headless_only(scene, tmp_path):
+    """``python -m enerf_tpu_torch.gui_human`` without ``--headless`` opens
+    the windowed GUI, which raises JAX's error where ``glfw.init()`` fails
+    (a stand-in ``glfw`` without a display here); with ``--headless 1
+    --device cpu`` it runs in a fresh interpreter without loading JAX,
+    OpenCV, imageio, Pillow, PyYAML, glfw or OpenGL (tqdm is loaded by
+    torch.hub where it is installed; no module of the port imports it,
+    ``tests/test_torch_guards.py``)."""
+    import chip_smoke as cs
     from enerf_tpu_torch import gui_human as pgui
 
-    with pytest.raises(SystemExit) as exc:
-        pgui.main(["--device", "cpu"])
-    assert exc.value.code == 2
-    assert "windowed GUI" in capsys.readouterr().err
+    opts = _opts(scene)
+    opts[opts.index("workspace") + 1] = str(tmp_path)
+    glfw, gl, rec = cs.stub_gl_modules(frames=1, init_ok=False)
+    with cs.stub_gl(glfw, gl), pytest.raises(
+            RuntimeError, match="no display. use --headless"):
+        pgui.main(["--device", "cpu", *opts, "test_dataset.data_root",
+                   str(scene / "zju_mocap")])
+    assert rec["polls"] == 0
     code = ("import runpy, sys\n"
             "sys.argv = ['gui_human'] + sys.argv[1:]\n"
             "runpy.run_module('enerf_tpu_torch.gui_human', "
@@ -282,8 +288,6 @@ def test_gui_cli_headless_only(scene, tmp_path, capsys):
             "    ('jax', 'flax', 'enerf_tpu', 'yaml', 'cv2', 'imageio', "
             "'PIL', 'glfw', 'OpenGL'))\n"
             "print('LOADED', bad)\n")
-    opts = _opts(scene)
-    opts[opts.index("workspace") + 1] = str(tmp_path)
     res = subprocess.run(
         [sys.executable, "-c", code, "--headless", "1", "--device", "cpu",
          *opts, "test_dataset.data_root", str(scene / "zju_mocap")],
