@@ -37,6 +37,7 @@ from enerf_tpu_torch.config import Config, ENeRFConfig
 from enerf_tpu_torch.datasets.loader import device_batch
 from enerf_tpu_torch.factory import make_network
 from enerf_tpu_torch.models.enerf import ENeRF
+from enerf_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,12 +70,15 @@ def build_model(cfg, device=None, seed: int = 0, train: bool = False
 @torch.inference_mode()
 def render(model: ENeRF, batch: Mapping, stage_hook=None, **kwargs
            ) -> Dict[str, torch.Tensor]:
-    """Render one batch with ``model`` on the model's device; only the
-    batch's device inputs are uploaded (``device_batch``: the host-only
-    ground truth ``tar_img``, ``tar_dpt``, ``tar_mask`` stays).
-    ``kwargs`` go to the model's forward (``ray_slice``)."""
-    dev = next(model.parameters()).device
-    return model(device_batch(batch, dev), stage_hook=stage_hook, **kwargs)
+    """Render one batch with ``model`` on the model's device, in the span
+    ``render`` (``utils/profiling.span``); only the batch's device inputs
+    are uploaded (``device_batch``: the host-only ground truth
+    ``tar_img``, ``tar_dpt``, ``tar_mask`` stays). ``kwargs`` go to the
+    model's forward (``ray_slice``)."""
+    with span("render"):
+        dev = next(model.parameters()).device
+        return model(device_batch(batch, dev), stage_hook=stage_hook,
+                     **kwargs)
 
 
 __all__ = ["build_model", "render", "resolve_device", "device_batch",

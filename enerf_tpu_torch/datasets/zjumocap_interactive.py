@@ -39,6 +39,7 @@ from enerf_tpu_torch.config import Config, DatasetConfig
 from enerf_tpu_torch.datasets.zjumocap import view_range
 from enerf_tpu_torch.utils.cv import dilate, resize_by, undistort
 from enerf_tpu_torch.utils.image_io import imread
+from enerf_tpu_torch.utils.profiling import span
 
 
 def rays_aabb_mask(rays: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
@@ -161,32 +162,35 @@ class Dataset:
 
     def host_query(self, frame: int, c2w: np.ndarray, w2c: np.ndarray
                    ) -> Dict:
-        """The host side of a query: near / far, the chosen views and their
-        padding, and the host arrays to upload."""
-        cfg = self.cfg
-        data = self.cache_data(frame)
-        verts = data["vertices"] @ w2c[:3, :3].T + w2c[:3, 3:].T
-        near_far = np.array([max(verts[:, 2].min(), 0.05),
-                             verts[:, 2].max()], np.float32)
+        """The host side of a query (span ``query.host``): near / far, the
+        chosen views and their padding, and the host arrays to upload."""
+        with span("query.host"):
+            cfg = self.cfg
+            data = self.cache_data(frame)
+            verts = data["vertices"] @ w2c[:3, :3].T + w2c[:3, 3:].T
+            near_far = np.array([max(verts[:, 2].min(), 0.05),
+                                 verts[:, 2].max()], np.float32)
 
-        dist = np.linalg.norm(self.cam_points - c2w[:3, 3][None], axis=-1)
-        near_views = np.argsort(dist)[: cfg.enerf.test_input_views]
+            dist = np.linalg.norm(self.cam_points - c2w[:3, 3][None], axis=-1)
+            near_views = np.argsort(dist)[: cfg.enerf.test_input_views]
 
-        S_max = cfg.enerf.max_views
-        pad = S_max - len(near_views)
-        view_mask = np.concatenate(
-            [np.ones(len(near_views)), np.zeros(pad)]).astype(np.float32)
-        sel = np.concatenate([near_views, np.zeros(pad, near_views.dtype)])
-        return {"c2w": c2w, "inps": data["inps"][near_views],
-                "n_pad": pad, "bounds": data["bounds"],
-                "tar_ext": np.asarray(w2c, np.float32), "tar_ixt": self.ixt,
-                "src_exts": self.exts[sel], "src_ixts": self.ixts[sel],
-                "view_mask": view_mask, "near_far": near_far}
+            S_max = cfg.enerf.max_views
+            pad = S_max - len(near_views)
+            view_mask = np.concatenate(
+                [np.ones(len(near_views)), np.zeros(pad)]).astype(np.float32)
+            sel = np.concatenate([near_views, np.zeros(pad, near_views.dtype)])
+            return {"c2w": c2w, "inps": data["inps"][near_views],
+                    "n_pad": pad, "bounds": data["bounds"],
+                    "tar_ext": np.asarray(w2c, np.float32),
+                    "tar_ixt": self.ixt, "src_exts": self.exts[sel],
+                    "src_ixts": self.ixts[sel], "view_mask": view_mask,
+                    "near_far": near_far}
 
     def upload(self, host: Dict) -> Dict[str, torch.Tensor]:
-        """The host arrays of ``host_query`` on the device, the padded views'
-        zeros made there; returns the batch without its rays.
-        ``upload_bytes`` holds the bytes it copied."""
+        """The host arrays of ``host_query`` on the device (span
+        ``query.upload``), the padded views' zeros made there; returns the
+        batch without its rays. ``upload_bytes`` holds the bytes it
+        copied."""
         self.upload_bytes = 0
 
         def put(a):
@@ -194,27 +198,29 @@ class Dataset:
             self.upload_bytes += a.nbytes
             return torch.from_numpy(a).to(self.device)
 
-        inps = put(host["inps"])
-        if host["n_pad"]:
-            inps = torch.cat([inps, inps.new_zeros(
-                (host["n_pad"],) + inps.shape[1:])])
-        ret = {"src_inps": inps,
-               **{k: put(host[k]) for k in ("tar_ext", "tar_ixt", "src_exts",
-                                            "src_ixts", "view_mask",
-                                            "near_far", "bounds")}}
-        return ret
+        with span("query.upload"):
+            inps = put(host["inps"])
+            if host["n_pad"]:
+                inps = torch.cat([inps, inps.new_zeros(
+                    (host["n_pad"],) + inps.shape[1:])])
+            return {"src_inps": inps,
+                    **{k: put(host[k]) for k in ("tar_ext", "tar_ixt",
+                                                 "src_exts", "src_ixts",
+                                                 "view_mask", "near_far",
+                                                 "bounds")}}
 
     def finish(self, host: Dict, ret: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
-        """The device side of a query: the rays and ``mask_at_box`` of
-        ``host``'s camera; every key with a batch dim, as the model takes
-        it (reference add_batch, data_utils.py:14-26)."""
-        i = self.cfg.enerf.cas_config.num - 1
-        rays, _, _ = self.build_rays(host["c2w"])
-        bounds = ret.pop("bounds")
-        ret[f"rays_{i}"] = rays
-        ret["mask_at_box"] = rays_aabb_mask(rays, bounds).float()
-        return {k: v[None] for k, v in ret.items()}
+        """The device side of a query (span ``query.finish``): the rays and
+        ``mask_at_box`` of ``host``'s camera; every key with a batch dim,
+        as the model takes it (reference add_batch, data_utils.py:14-26)."""
+        with span("query.finish"):
+            i = self.cfg.enerf.cas_config.num - 1
+            rays, _, _ = self.build_rays(host["c2w"])
+            bounds = ret.pop("bounds")
+            ret[f"rays_{i}"] = rays
+            ret["mask_at_box"] = rays_aabb_mask(rays, bounds).float()
+            return {k: v[None] for k, v in ret.items()}
 
     def __getitem__(self, query: Tuple[int, np.ndarray, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:

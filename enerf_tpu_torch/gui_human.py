@@ -43,9 +43,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from enerf_tpu_torch import native, resolve_device
+from enerf_tpu_torch import native, render, resolve_device
 from enerf_tpu_torch.config import Config, make_cfg
 from enerf_tpu_torch.interactive.font import draw_text
+from enerf_tpu_torch.utils.profiling import record, span
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -74,11 +75,10 @@ class Renderer:
         from enerf_tpu_torch.factory import make_visualizer
         from enerf_tpu_torch.interactive.camera import Camera
         from enerf_tpu_torch.interactive.render_options import make_options
-        from enerf_tpu_torch.run import DeviceClock, load_eval_model
+        from enerf_tpu_torch.run import load_eval_model
 
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.clock = DeviceClock(self.device)
         self.opt = make_options(cfg)
         self.visualizer = make_visualizer(cfg)
         print("Loading dataset...")
@@ -111,37 +111,35 @@ class Renderer:
 
     def render_next(self) -> np.ndarray:
         """The next frame at the camera's pose (float (H, W, 3) in [0, 1]);
-        its time split is appended to ``splits``."""
+        its time split, read from the frame's spans, is appended to
+        ``splits``."""
+        cuda = self.device.type == "cuda"
         t0 = time.perf_counter()
-        host = self.dataset.host_query(self.frame_curr, self.cam.get_c2w(),
-                                       self.cam.get_w2c())
+        with record(device=cuda) as rec:
+            host = self.dataset.host_query(
+                self.frame_curr, self.cam.get_c2w(), self.cam.get_w2c())
+            batch = self.dataset.finish(host, self.dataset.upload(host))
+            if self.opt.autoplay:
+                self.iter = (self.iter + 1) % self.frame_cnt
+            out = render(self.model, batch)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            with span("readback"):
+                ret = self.visualizer.visualize(
+                    {k: v.cpu().numpy() for k, v in out.items()}, batch)
+                img = ret[self.opt.type_mapping[self.opt.type]]
         t1 = time.perf_counter()
-        e0 = self.clock.mark()
-        batch = self.dataset.upload(host)
-        e1 = self.clock.mark()
-        batch = self.dataset.finish(host, batch)
-        e2 = self.clock.mark()
-        if self.opt.autoplay:
-            self.iter = (self.iter + 1) % self.frame_cnt
-        with torch.inference_mode():
-            out = self.model(batch)
-        e3 = self.clock.mark()
-        self.clock.sync()
-        t2 = time.perf_counter()
-        ret = self.visualizer.visualize(
-            {k: v.cpu().numpy() for k, v in out.items()}, batch)
-        img = ret[self.opt.type_mapping[self.opt.type]]
-        t3 = time.perf_counter()
-        self.fps_hist.append(1.0 / max(t3 - t0, 1e-6))
+        self.fps_hist.append(1.0 / max(t1 - t0, 1e-6))
         self.fps_hist = self.fps_hist[-10:]
+        ms = rec.device_ms if cuda else rec.host_ms
         self.splits.append({
-            "query_host_ms": 1e3 * (t1 - t0),
-            "upload_ms": self.clock.ms(e0, e1),
+            "query_host_ms": rec.host_ms("query.host")[0],
+            "upload_ms": ms("query.upload")[0],
             "upload_bytes": self.dataset.upload_bytes,
-            "rays_mask_ms": self.clock.ms(e1, e2),
-            "forward_ms": self.clock.ms(e2, e3),
-            "readback_visualize_ms": 1e3 * (t3 - t2),
-            "frame_host_ms": 1e3 * (t3 - t0)})
+            "rays_mask_ms": ms("query.finish")[0],
+            "forward_ms": ms("render")[0],
+            "readback_visualize_ms": rec.host_ms("readback")[0],
+            "frame_host_ms": 1e3 * (t1 - t0)})
         self.last_host, self.last_batch, self.last_out = host, batch, out
         return np.asarray(img)
 

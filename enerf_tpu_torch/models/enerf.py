@@ -60,6 +60,7 @@ from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 from enerf_tpu_torch.ops.sampling import resize_bilinear, scale_size
 from enerf_tpu_torch.ops.warp import build_cost_volume
 from enerf_tpu_torch.parallel.dist import local_batch_slice
+from enerf_tpu_torch.utils.profiling import span
 
 # FPN output channels by feature level (level_0 = 1/4 res, level_2 = full)
 FEAT_CH = {0: 32, 1: 16, 2: 8}
@@ -98,53 +99,54 @@ class ENeRF(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 stage_hook: StageHook = None, ray_slice: RaySlice = None
                 ) -> Dict[str, torch.Tensor]:
-        """Forward of the whole cascade. ``stage_hook(name)``, when given,
-        is called right after each stage is enqueued (``feature_net``,
-        ``cost_volume_{i}``, ``cost_reg_{i}``, ``depth_{i}``,
-        ``render_{i}``) — a timer records a CUDA event there.
-        ``ray_slice``: see the module's docstring."""
-        hook = stage_hook or (lambda name: None)
+        """Forward of the whole cascade, one span a stage
+        (``utils/profiling.span``: ``feature_net``, ``cost_volume_{i}``,
+        ``cost_reg_{i}``, ``depth_{i}``, ``render_{i}``); ``stage_hook(name)``,
+        when given, is called as each closes, right after the stage is
+        enqueued. ``ray_slice``: see the module's docstring."""
         cas = self.cfg.cas_config
-        feats = self.forward_feat(batch["src_inps"])
-        hook("feature_net")
+        with span("feature_net", stage_hook):
+            feats = self.forward_feat(batch["src_inps"])
         view_mask = batch.get("view_mask")
         H_O, W_O = batch["src_inps"].shape[2:4]
 
         ret: Dict[str, torch.Tensor] = {}
         depth = std = near_far = None
         for i in range(cas.num):
-            D = cas.volume_planes[i]
-            if depth is None:
-                depth_values, near_far = init_depth_values(
-                    batch["near_far"], D,
-                    scale_size(H_O, cas.volume_scale[i]),
-                    scale_size(W_O, cas.volume_scale[i]), cas.depth_inv[i])
-            else:
-                depth_values, near_far = cascade_depth_values(
-                    depth, std, near_far, D,
-                    depth_inv_prev=cas.depth_inv[i - 1],
-                    depth_inv_cur=cas.depth_inv[i],
-                    up_scale=cas.volume_scale[i] / cas.volume_scale[i - 1])
-            projs = get_proj_mats(batch["src_exts"], batch["src_ixts"],
-                                  batch["tar_ext"], batch["tar_ixt"],
-                                  src_scale=cas.im_feat_scale[i],
-                                  tar_scale=cas.volume_scale[i])
-            cost_volume = (cost_volume_plain if self.training
-                           else build_cost_volume)
-            volume = cost_volume(feats[f"level_{i}"], projs, depth_values,
-                                 view_mask)
-            hook(f"cost_volume_{i}")
-            feat_volume, depth_logits = getattr(self, f"cost_reg_{i}")(volume)
-            hook(f"cost_reg_{i}")
-            depth, std = depth_regression(depth_logits, depth_values,
-                                          cas.depth_inv[i])
-            hook(f"depth_{i}")
+            with span(f"cost_volume_{i}", stage_hook):
+                D = cas.volume_planes[i]
+                if depth is None:
+                    depth_values, near_far = init_depth_values(
+                        batch["near_far"], D,
+                        scale_size(H_O, cas.volume_scale[i]),
+                        scale_size(W_O, cas.volume_scale[i]), cas.depth_inv[i])
+                else:
+                    depth_values, near_far = cascade_depth_values(
+                        depth, std, near_far, D,
+                        depth_inv_prev=cas.depth_inv[i - 1],
+                        depth_inv_cur=cas.depth_inv[i],
+                        up_scale=(cas.volume_scale[i]
+                                  / cas.volume_scale[i - 1]))
+                projs = get_proj_mats(batch["src_exts"], batch["src_ixts"],
+                                      batch["tar_ext"], batch["tar_ixt"],
+                                      src_scale=cas.im_feat_scale[i],
+                                      tar_scale=cas.volume_scale[i])
+                cost_volume = (cost_volume_plain if self.training
+                               else build_cost_volume)
+                volume = cost_volume(feats[f"level_{i}"], projs, depth_values,
+                                     view_mask)
+            with span(f"cost_reg_{i}", stage_hook):
+                feat_volume, depth_logits = getattr(
+                    self, f"cost_reg_{i}")(volume)
+            with span(f"depth_{i}", stage_hook):
+                depth, std = depth_regression(depth_logits, depth_values,
+                                              cas.depth_inv[i])
             if not cas.render_if[i]:
                 continue
-            ret_i = self._render_stage(i, depth, std, near_far, feat_volume,
-                                       feats, batch, view_mask,
-                                       ray_slice=ray_slice)
-            hook(f"render_{i}")
+            with span(f"render_{i}", stage_hook):
+                ret_i = self._render_stage(i, depth, std, near_far,
+                                           feat_volume, feats, batch,
+                                           view_mask, ray_slice=ray_slice)
             ret_i["depth_mvs"] = (1.0 / depth) if cas.depth_inv[i] else depth
             ret_i["std"] = std
             ret.update({f"{k}_level{i}": v for k, v in ret_i.items()})

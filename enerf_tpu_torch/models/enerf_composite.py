@@ -58,6 +58,7 @@ from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 from enerf_tpu_torch.ops.sampling import scale_size
 from enerf_tpu_torch.ops.warp import build_cost_volume, build_cost_volume_crop
 from enerf_tpu_torch.ops.window import Window
+from enerf_tpu_torch.utils.profiling import span
 
 StageHook = Optional[Callable[[str], None]]
 
@@ -91,16 +92,16 @@ class ENeRFComposite(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 stage_hook: StageHook = None) -> Dict[str, torch.Tensor]:
-        """The composite forward. ``stage_hook(name)``, when given, is
-        called right after each stage is enqueued (``feature_net``, then
-        per level ``fg_{i}`` — all fg layers' volumes, 3D CNNs, depth and
-        raw renders — ``bg_{i}`` and ``composite_{i}``)."""
-        hook = stage_hook or (lambda name: None)
+        """The composite forward, one span a stage
+        (``utils/profiling.span``: ``feature_net``, then per level ``fg_{i}``
+        — all fg layers' volumes, 3D CNNs, depth and raw renders —
+        ``bg_{i}`` and ``composite_{i}``); ``stage_hook(name)``, when given,
+        is called as each closes, right after the stage is enqueued."""
         cas = self.cfg.cas_config
         L = self.cfg.num_fg_layers
-        feats = fpn_features(self.feature_net, batch["src_inps"])
-        feats_bg = fpn_features(self.feature_net_bg, batch["src_inps"])
-        hook("feature_net")
+        with span("feature_net", stage_hook):
+            feats = fpn_features(self.feature_net, batch["src_inps"])
+            feats_bg = fpn_features(self.feature_net_bg, batch["src_inps"])
         view_mask = batch.get("view_mask")
         H_O, W_O = batch["src_inps"].shape[2:4]
         bbox = batch["bbox"].to(torch.float32)    # (B, L, 4) x, y, w, h
@@ -110,79 +111,83 @@ class ENeRFComposite(nn.Module):
         fg_prev: List = [None] * L                 # (depth, std, near_far)
         bg_prev = None
         for i in range(cas.num):
-            vs, rs = cas.volume_scale[i], cas.render_scale[i]
-            Hv, Wv = scale_size(H_O, vs), scale_size(W_O, vs)
-            Hr, Wr = scale_size(H_O, rs), scale_size(W_O, rs)
-            projs = get_proj_mats(batch["src_exts"], batch["src_ixts"],
-                                  batch["tar_ext"], batch["tar_ixt"],
-                                  src_scale=cas.im_feat_scale[i],
-                                  tar_scale=vs)
-            layers = []
-            for l in range(L):
-                depth_values, near_far = self._planes(
-                    i, fg_prev[l], batch["near_far"][:, l],
-                    cas.volume_planes[i], Hv, Wv)
-                hv, wv = int(fg_h * vs), int(fg_w * vs)
-                xy0 = (bbox[:, l, :2] * vs).to(torch.int32)
-                if self.training:
-                    volume = cost_volume_plain(
-                        feats[f"level_{i}"], projs, depth_values, view_mask,
-                        window=(xy0, (hv, wv)))
-                else:
-                    volume = build_cost_volume_crop(
-                        feats[f"level_{i}"], projs, depth_values, xy0,
-                        (hv, wv), view_mask)
-                _, logits = getattr(self, f"cost_reg_{i}_layer{l}")(volume)
-                # pad back to the full frame (network_composite.py:102-103)
-                logits = Window(xy0, (hv, wv), (Hv, Wv)).paste(logits,
-                                                               planes=True)
-                depth, std = depth_regression(logits, depth_values,
-                                              cas.depth_inv[i])
-                fg_prev[l] = (depth, std, near_far)
-                if not cas.render_if[i]:
-                    continue
-                rays = build_rays(batch[f"rays_{i}"], depth, std, near_far,
-                                  depth_inv=cas.depth_inv[i], up_scale=rs / vs)
-                # the rays of the window at render scale
-                # (build_rays_composite, utils.py:219-252)
-                hr, wr = int(fg_h * rs), int(fg_w * rs)
-                win = Window((bbox[:, l, :2] * rs).to(torch.int32), (hr, wr),
-                             (Hr, Wr))
-                B = rays.shape[0]
-                rays = win.crop(rays.reshape(B, Hr, Wr, -1))
-                out = self.render_raw(
-                    i, rays.reshape(B, hr * wr, -1), feats, batch["src_inps"],
-                    getattr(self, f"nerf_{i}_layer{l}"), batch, view_mask)
-                # into the full frame (parse_layer, utils.py:875-887)
-                layers.append({
-                    k: win.paste(v.reshape((B, hr, wr) + v.shape[2:])
-                                 ).reshape((B, Hr * Wr) + v.shape[2:])
-                    for k, v in out.items()})
-            hook(f"fg_{i}")
+            with span(f"fg_{i}", stage_hook):
+                vs, rs = cas.volume_scale[i], cas.render_scale[i]
+                Hv, Wv = scale_size(H_O, vs), scale_size(W_O, vs)
+                Hr, Wr = scale_size(H_O, rs), scale_size(W_O, rs)
+                projs = get_proj_mats(batch["src_exts"], batch["src_ixts"],
+                                      batch["tar_ext"], batch["tar_ixt"],
+                                      src_scale=cas.im_feat_scale[i],
+                                      tar_scale=vs)
+                layers = []
+                for l in range(L):
+                    depth_values, near_far = self._planes(
+                        i, fg_prev[l], batch["near_far"][:, l],
+                        cas.volume_planes[i], Hv, Wv)
+                    hv, wv = int(fg_h * vs), int(fg_w * vs)
+                    xy0 = (bbox[:, l, :2] * vs).to(torch.int32)
+                    if self.training:
+                        volume = cost_volume_plain(
+                            feats[f"level_{i}"], projs, depth_values,
+                            view_mask, window=(xy0, (hv, wv)))
+                    else:
+                        volume = build_cost_volume_crop(
+                            feats[f"level_{i}"], projs, depth_values, xy0,
+                            (hv, wv), view_mask)
+                    _, logits = getattr(self, f"cost_reg_{i}_layer{l}")(volume)
+                    # pad back to the full frame (network_composite.py:102-103)
+                    logits = Window(xy0, (hv, wv), (Hv, Wv)).paste(logits,
+                                                                   planes=True)
+                    depth, std = depth_regression(logits, depth_values,
+                                                  cas.depth_inv[i])
+                    fg_prev[l] = (depth, std, near_far)
+                    if not cas.render_if[i]:
+                        continue
+                    rays = build_rays(batch[f"rays_{i}"], depth, std,
+                                      near_far, depth_inv=cas.depth_inv[i],
+                                      up_scale=rs / vs)
+                    # the rays of the window at render scale
+                    # (build_rays_composite, utils.py:219-252)
+                    hr, wr = int(fg_h * rs), int(fg_w * rs)
+                    win = Window((bbox[:, l, :2] * rs).to(torch.int32),
+                                 (hr, wr), (Hr, Wr))
+                    B = rays.shape[0]
+                    rays = win.crop(rays.reshape(B, Hr, Wr, -1))
+                    out = self.render_raw(
+                        i, rays.reshape(B, hr * wr, -1), feats,
+                        batch["src_inps"], getattr(self, f"nerf_{i}_layer{l}"),
+                        batch, view_mask)
+                    # into the full frame (parse_layer, utils.py:875-887)
+                    layers.append({
+                        k: win.paste(v.reshape((B, hr, wr) + v.shape[2:])
+                                     ).reshape((B, Hr * Wr) + v.shape[2:])
+                        for k, v in out.items()})
 
             # background (network_composite.py:120-139)
-            depth_values, nf_bg = self._planes(
-                i, bg_prev, batch["near_far"][:, -1],
-                self.cfg.bg_volume_planes[i], Hv, Wv)
-            volume = (cost_volume_plain if self.training else build_cost_volume)(
-                feats_bg[f"level_{i}"], projs, depth_values, view_mask)
-            _, logits = getattr(self, f"cost_reg_{i}_bg")(volume)
-            depth, std = depth_regression(logits, depth_values,
-                                          cas.depth_inv[i])
-            bg_prev = (depth, std, nf_bg)
+            with span(f"bg_{i}", stage_hook):
+                depth_values, nf_bg = self._planes(
+                    i, bg_prev, batch["near_far"][:, -1],
+                    self.cfg.bg_volume_planes[i], Hv, Wv)
+                volume = (cost_volume_plain if self.training
+                          else build_cost_volume)(
+                    feats_bg[f"level_{i}"], projs, depth_values, view_mask)
+                _, logits = getattr(self, f"cost_reg_{i}_bg")(volume)
+                depth, std = depth_regression(logits, depth_values,
+                                              cas.depth_inv[i])
+                bg_prev = (depth, std, nf_bg)
+                if cas.render_if[i]:
+                    rays = build_rays(batch[f"rays_{i}"], depth, std, nf_bg,
+                                      depth_inv=cas.depth_inv[i],
+                                      up_scale=rs / vs)
+                    layers.append(self.render_raw(
+                        i, rays, feats_bg, batch["bg_src_inps"],
+                        getattr(self, f"nerf_{i}_bg"), batch, view_mask))
             if not cas.render_if[i]:
-                hook(f"bg_{i}")
                 continue
-            rays = build_rays(batch[f"rays_{i}"], depth, std, nf_bg,
-                              depth_inv=cas.depth_inv[i], up_scale=rs / vs)
-            layers.append(self.render_raw(
-                i, rays, feats_bg, batch["bg_src_inps"],
-                getattr(self, f"nerf_{i}_bg"), batch, view_mask))
-            hook(f"bg_{i}")
-            ret_i = composite_layers(layers, num_fg_layers=L,
-                                     white_bkgd=self.cfg.white_bkgd)
-            ret.update({f"{k}_level{i}": v for k, v in ret_i.items()})
-            hook(f"composite_{i}")
+            with span(f"composite_{i}", stage_hook):
+                ret_i = composite_layers(layers, num_fg_layers=L,
+                                         white_bkgd=self.cfg.white_bkgd)
+                ret.update({f"{k}_level{i}": v for k, v in ret_i.items()})
         return ret
 
     def _planes(self, level, prev, near_far, D, Hv, Wv):

@@ -16,13 +16,14 @@ initialization, as ``run.py`` does), the metrics from
 ``factory.make_visualizer(cfg)``.
 
 Frame time is the reference's method (run.py:62-76): each frame's forward
-timed on its own, the first frame excluded from the mean; on the card by
-CUDA events around the forward (the batch's upload timed apart), on the
-CPU by the host clock. Beside it: the loader's host time a batch (decode,
-PFM, rays and collation, in its worker), the time the loop waited for it,
-and the bytes uploaded a frame; for ``--type visualize`` the host ms of
-the visualizer a frame (the copy to the host already made) and of the
-videos' encoding.
+timed on its own, the first frame excluded from the mean. The frame loop
+records its spans (``utils/profiling.record``): ``eval.upload`` and
+``eval.forward`` give the upload's and the forward's ms, on the card by
+their CUDA events, on the CPU by the host clock. Beside it: the loader's
+host time a batch (decode, PFM, rays and collation, in its worker), the
+time the loop waited for it, and the bytes uploaded a frame; for
+``--type visualize`` the host ms of the visualizer a frame (the copy to
+the host already made) and of the videos' encoding.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from enerf_tpu_torch import build_model, resolve_device
 from enerf_tpu_torch.config import Config, make_cfg
 from enerf_tpu_torch.datasets.loader import device_batch, make_data_loader
+from enerf_tpu_torch.utils.profiling import record, span
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -54,51 +56,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="torch device (default: the GPU)")
     parser.add_argument("opts", nargs=argparse.REMAINDER)
     return parser.parse_args(argv)
-
-
-class DeviceClock:
-    """Marks on a device's clock: CUDA events on the card (read after a
-    synchronize), the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def ms(self, a, b) -> float:
-        return a.elapsed_time(b) if self.cuda else 1e3 * (b - a)
-
-    def sync(self) -> None:
-        if self.cuda:
-            torch.cuda.synchronize()
-
-
-class _FrameTimer(DeviceClock):
-    """The upload and forward time of each frame."""
-
-    def __init__(self, device: torch.device):
-        super().__init__(device)
-        self.upload_ms: List[float] = []
-        self.frame_ms: List[float] = []
-
-    def run(self, model, batch_np: Dict):
-        """Upload ``batch_np``'s device inputs, run ``model`` on them and
-        wait for the device; returns (outputs, bytes uploaded)."""
-        t0 = self.mark()
-        batch = device_batch(batch_np, next(model.parameters()).device)
-        t1 = self.mark()
-        with torch.inference_mode():
-            out = model(batch)
-        t2 = self.mark()
-        self.sync()
-        self.upload_ms.append(self.ms(t0, t1))
-        self.frame_ms.append(self.ms(t1, t2))
-        return out, sum(t.numel() * t.element_size() for t in batch.values())
 
 
 def load_eval_model(cfg: Config, device) -> torch.nn.Module:
@@ -120,31 +77,42 @@ def load_eval_model(cfg: Config, device) -> torch.nn.Module:
 
 def _frames(cfg: Config, device, consume=None) -> Dict:
     """Every test batch through the model (and ``consume(outputs,
-    batch)``, on the host copy of the outputs): the per-frame times, the
-    FPS of their mean with the first frame excluded (as the reference's
-    run.py excludes it), and the first frame's batch and outputs."""
+    batch)``, on the host copy of the outputs): the per-frame times (the
+    spans ``eval.upload`` and ``eval.forward``), the FPS of their mean with
+    the first frame excluded (as the reference's run.py excludes it), and
+    the first frame's batch and outputs."""
     loader = make_data_loader(cfg, "test")
     model = load_eval_model(cfg, device)
-    timer = _FrameTimer(device)
+    cuda = device.type == "cuda"
     wait_ms, n_bytes = [], []
     first_batch = first_out = None
-    t = time.perf_counter()
-    for batch_np in loader:
-        wait_ms.append(1e3 * (time.perf_counter() - t))
-        out, nb = timer.run(model, batch_np)
-        n_bytes.append(nb)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        if first_batch is None:
-            first_batch, first_out = batch_np, out
-        if consume is not None:
-            consume(out, batch_np)
+    with record(device=cuda) as rec:
         t = time.perf_counter()
-    timed = timer.frame_ms[1:] or timer.frame_ms
-    return {"frames": len(timer.frame_ms), "frame_ms": timer.frame_ms,
+        for batch_np in loader:
+            wait_ms.append(1e3 * (time.perf_counter() - t))
+            rec.next_unit()
+            with span("eval.upload"):
+                batch = device_batch(batch_np, device)
+            with span("eval.forward"), torch.inference_mode():
+                out = model(batch)
+            n_bytes.append(sum(v.numel() * v.element_size()
+                               for v in batch.values()))
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            if first_batch is None:
+                first_batch, first_out = batch_np, out
+            if consume is not None:
+                consume(out, batch_np)
+            t = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize(device)
+    ms = rec.device_ms if cuda else rec.host_ms
+    frame_ms, upload_ms = ms("eval.forward"), ms("eval.upload")
+    timed = frame_ms[1:] or frame_ms
+    return {"frames": len(frame_ms), "frame_ms": frame_ms,
             "fps": 1e3 / float(np.mean(timed)) if timed else float("nan"),
-            "upload_ms": timer.upload_ms, "upload_bytes": n_bytes,
+            "upload_ms": upload_ms, "upload_bytes": n_bytes,
             "loader_host_ms": loader.host_ms, "loader_wait_ms": wait_ms,
-            "timer": "cuda events" if timer.cuda else "host clock",
+            "timer": "cuda events" if cuda else "host clock",
             "model": model, "first_batch": first_batch,
             "first_out": first_out}
 

@@ -33,6 +33,7 @@ from enerf_tpu_torch.parallel.dist import all_reduce_sum, rank, world_size
 from enerf_tpu_torch.train.loss import compute_loss, mse2psnr
 from enerf_tpu_torch.train.state import TrainState
 from enerf_tpu_torch.train.vgg import VGG16Blocks
+from enerf_tpu_torch.utils.profiling import span
 
 PhaseHook = Optional[Callable[[str], None]]
 
@@ -44,9 +45,11 @@ def make_train_step(cfg: Config, src_hw: Tuple[int, int],
     ``batch`` is a dict of numpy arrays or tensors (moved to the model's
     device); ``stats`` holds detached scalar tensors (``loss``,
     ``color_mse_i``, ``psnr_i``, ``perceptual_loss_i``); reading them
-    waits for the device. ``phase_hook(name)``, when given, is called right
-    after the ``forward`` (loss included), ``backward`` and ``optimizer``
-    phases are enqueued — a timer records a CUDA event there.
+    waits for the device. The step runs in the span ``train.step``, each
+    phase in its own (``utils/profiling.span``: ``train.forward``, loss
+    included, ``train.backward``, ``train.optimizer``); ``phase_hook(name)``,
+    when given, is called as each closes, right after the ``forward``,
+    ``backward`` or ``optimizer`` phase is enqueued.
 
     With ``state.model`` wrapped by ``wrap_ddp``, ``batch`` is this rank's
     share of the global batch; the gradient is clipped after DDP's
@@ -57,27 +60,33 @@ def make_train_step(cfg: Config, src_hw: Tuple[int, int],
 
     def step(state: TrainState, batch, phase_hook: PhaseHook = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        hook = phase_hook or (lambda name: None)
-        model = state.model
-        batch = device_batch(batch, next(model.parameters()).device)
-        model.train()
-        output = model(batch)
-        loss, stats = compute_loss(output, batch, cfg.enerf, src_hw,
-                                   vgg_params)
-        hook("forward")
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        hook("backward")
-        torch.nn.utils.clip_grad_value_(model.parameters(), clip)
-        state.optimizer.step()
-        state.scheduler.step()
-        hook("optimizer")
-        stats = {k: v.detach() for k, v in stats.items()}
-        if isinstance(model, nn.parallel.DistributedDataParallel):
-            stats = _global_stats(stats)
-        return state, stats
+        with span("train.step"):
+            model = state.model
+            with _phase("forward", phase_hook):
+                batch = device_batch(batch, next(model.parameters()).device)
+                model.train()
+                output = model(batch)
+                loss, stats = compute_loss(output, batch, cfg.enerf, src_hw,
+                                           vgg_params)
+            with _phase("backward", phase_hook):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with _phase("optimizer", phase_hook):
+                torch.nn.utils.clip_grad_value_(model.parameters(), clip)
+                state.optimizer.step()
+                state.scheduler.step()
+            stats = {k: v.detach() for k, v in stats.items()}
+            if isinstance(model, nn.parallel.DistributedDataParallel):
+                stats = _global_stats(stats)
+            return state, stats
 
     return step
+
+
+def _phase(name: str, hook: PhaseHook) -> span:
+    """The span ``train.<name>`` of a step's phase; it calls ``hook(name)``
+    as it closes."""
+    return span("train." + name, hook and (lambda _: hook(name)))
 
 
 def _global_stats(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -679,3 +679,39 @@ def test_run_cli_on_card_matches_cpu(cuda, tmp_path):
                                    rtol=1e-3, atol=atol)
     assert abs(card["metrics"]["psnr"] - cpu["metrics"]["psnr"]) < 1e-2
     assert abs(card["metrics"]["ssim"] - cpu["metrics"]["ssim"]) < 1e-3
+
+
+@pytest.mark.cuda
+def test_spans_on_card(cuda):
+    """The program's spans on the card: ``record(device=True)`` times each
+    stage by its CUDA events (read after a synchronize), the stages within
+    ``render``; in a profiler session each span is a host range and no
+    device record (the card's trace holds the kernels alone)."""
+    import enerf_tpu_torch as et
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from enerf_tpu_torch.utils import profiling
+
+    cfg = dtu_eval_config()
+    model = et.build_model(cfg, device=cuda)
+    batch = make_synthetic_batch(cfg, H, W)
+    et.render(model, batch)
+    hooks = []
+    with profiling.record(device=True) as rec:
+        et.render(model, batch, stage_hook=hooks.append)
+    torch.cuda.synchronize()
+    summary = rec.summary()
+    assert set(summary) == {"render", *hooks} and len(hooks) == 8
+    assert all(v["count"] == 1 and v["device_ms"] > 0 for v in summary.values())
+    assert rec.device_ms("render")[0] >= max(summary[h]["device_ms"]
+                                             for h in hooks)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        et.render(model, batch)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    host = {e.name() for e in events if e.device_type() == DeviceType.CPU}
+    dev = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    assert {"enerf.render", *("enerf." + h for h in hooks)} <= host
+    assert dev and not [n for n in dev if n.startswith("enerf.")]

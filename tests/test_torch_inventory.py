@@ -74,6 +74,8 @@ NOT_PORTED = {
     "utils/convert.torch_to_flax": "JAX-side direction",
     "utils/convert.flax_to_torch": "utils/convert.py:flax_state_dict",
     "utils/convert.load_torch_checkpoint": "a reference .pth is a torch state dict under the port's names: torch.load",
+    "utils/profiling.perf_timer": "synchronizing stopwatches; the port's spans (`profiling.span`) replace them",
+    "utils/profiling.time_fn": "synchronizing stopwatches; the port's spans (`profiling.span`) replace them",
     "utils/profiling.setup_compile_cache": "JAX's compile cache; kernels are cached by source hash in build/kernels",
     "utils/profiling.frame_latency_fori": "TPU block_until_ready returns early; CUDA events wait for the card",
 }
