@@ -121,12 +121,17 @@ Phases, each printing one JSON line:
            launched through the kernel's C function
   k4_floor an empty kernel's device time on the same card: the launch floor
            beside K4's bounds
+  wgrad    the 3D CNNs' weight-gradient kernel (csrc/conv3d_wgrad.cu) vs
+           its plain version (cuDNN's weight gradient) at the 21 convs of
+           the 512x640 train step: error, device ms (torch.profiler, its
+           two kernels), event and plain ms, bound
   train    the train step of ``tools/bench_train.py``'s workload (512x640,
            3 source views, volume planes (64, 8), both levels rendering
            the full image on grid rays, MSE, Adam, seeded random weights)
            through ``build_model(train=True)`` / ``make_train_step``: step
            times and their forward / backward / optimizer split, peak
-           memory, the loss of every step, kernel launch counts; one step
+           memory, the loss of every step, kernel launch counts (the
+           weight-gradient kernel 21 a step); one step
            with seeded random VGG16 weights (the perceptual term); a
            128x160 step on the card vs the same step on the CPU
   train_profile  torch.profiler over two train steps
@@ -245,15 +250,16 @@ BF16_PER_FRAME = {
 BF16_KERNELS = ("cost_volume_bf16", "render_bf16", "render_l0_bf16",
                 "depth_regression_mixed")
 # kernel launches a frame (or a train step) on each main path; "render" is
-# csrc/render.cu (level 1's head), "render_l0" csrc/render_l0.cu (level 0's)
+# csrc/render.cu (level 1's head), "render_l0" csrc/render_l0.cu (level 0's);
+# no frame records a gradient, so none launches the weight-gradient kernel
 FRAMES_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
-                    "depth_regression": 2}
+                    "depth_regression": 2, "conv3d_wgrad": 0}
 HUMAN_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
-                   "depth_regression": 2}
+                   "depth_regression": 2, "conv3d_wgrad": 0}
 COMPOSITE_PER_FRAME = {"cost_volume": 4, "render": 0, "render_l0": 0,
-                       "depth_regression": 4}
+                       "depth_regression": 4, "conv3d_wgrad": 0}
 VAL_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 1,
-                 "depth_regression": 2}
+                 "depth_regression": 2, "conv3d_wgrad": 0}
 # the val main path: Trainer.val over this many frames, the first excluded
 # from the times (as many timed frames as the other frame phases)
 VAL_BATCHES = 1 + TIMED_FRAMES
@@ -278,7 +284,18 @@ KERNEL_SOURCES = {
         "enerf_tpu_torch/csrc/depth_regression.cu",
         "enerf_tpu/ops/pallas/reductions.py:66",
         "no single PyTorch call computes softmax + expectation + std"),
+    "conv3d_wgrad": (
+        "enerf_tpu_torch/csrc/conv3d_wgrad.cu",
+        "none (XLA's weight gradient of the 3D CNNs' convs)",
+        "cuDNN's weight gradient is the plain version (plain_ms)"),
 }
+# the weight-gradient kernel's launches a float32 train step: one a 3D conv
+# whose weight gradient the step computes. DTU and ZJU-MoCap: MinCostRegNet's
+# 9 at level 0, CostRegNet's 12 at level 1. The composite (actor1.yaml):
+# a fg and a bg MinCostRegNet a level, 8 each (the composite keeps only
+# the depth logits, so no gradient reaches the feature head)
+WGRAD_PER_STEP = 21
+WGRAD_PER_STEP_COMPOSITE = 32
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10      # timed steps of the train main path
 # the card vs the CPU on a small train step: f32 with TF32 off on both, but
@@ -1032,21 +1049,24 @@ def randomize_bn_stats(torch, model, seed):
 
 
 def reset_launches():
+    from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     kcv.launches = kdr.launches = kcv.launches_bf16 = kdr.launches_mixed = 0
+    kwg.launches = 0
     krender.reset_launches()
 
 
 def read_launches() -> dict:
+    from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     return {"cost_volume": kcv.launches, **krender.launches,
-            "depth_regression": kdr.launches}
+            "depth_regression": kdr.launches, "conv3d_wgrad": kwg.launches}
 
 
 def drive_frames(torch, phase, model, batch, per_frame, shapes):
@@ -2197,6 +2217,95 @@ def phase_bf16(torch):
     return paths, kernels
 
 
+def phase_wgrad(torch) -> dict:
+    """The weight-gradient kernel at each of the 21 3D convs of the train
+    step (their inputs' shapes read by forward pre-hooks from a ``no_grad``
+    forward of the train model at 512x640) on seeded channels-last inputs
+    and output gradients, against its plain version (cuDNN's weight
+    gradient, the path it replaces): the error (rtol 1e-4, atol 1e-5 of
+    the largest entry: the same float32 products summed in other orders),
+    the device time of its two kernels (torch.profiler), event and plain
+    ms, and the bound. Returns the step's totals."""
+    from torch import nn
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.datasets.synthetic import make_synthetic_batch
+    from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
+
+    cfg = bench_train_config()
+    model = et.build_model(cfg, seed=0, train=True)
+    batch = et.device_batch(make_synthetic_batch(cfg, H=H, W=W, split="train"),
+                            "cuda")
+    convs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, inp, name=name: convs.append((name, m, inp[0].shape)))
+        for name, m in model.named_modules() if kwg.takes(m)]
+    with torch.no_grad():
+        model(batch)
+    for h in hooks:
+        h.remove()
+    if len(convs) != WGRAD_PER_STEP:
+        fail(f"wgrad: {len(convs)} 3D convs in the train step, expected "
+             f"{WGRAD_PER_STEP}")
+    cl = torch.channels_last_3d
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cases = []
+    for name, m, shape in convs:
+        x = torch.randn(shape, device="cuda", generator=g).contiguous(
+            memory_format=cl)
+        with torch.no_grad():
+            y = m(x)
+        gy = torch.randn(y.shape, device="cuda", generator=g).contiguous(
+            memory_format=cl)
+        stride = m.stride[0]
+        # a transposed conv's weight gradient: its output gradient as the
+        # input, its input as the output gradient
+        a, b = (gy, x) if isinstance(m, nn.ConvTranspose3d) else (x, gy)
+        want = kwg.wgrad_plain(a, b, stride)
+        err = max_err(torch, kwg.wgrad(a, b, stride), want,
+                      rtol=1e-4, atol=1e-5 * float(want.abs().max()),
+                      what=f"wgrad {name}")
+        call = functools.partial(kwg.wgrad, a, b, stride)
+        device = sum(device_kernel_ms(torch, call, k, label=f"{name} {k}")
+                     for k in ("wgrad_partial_kernel", "wgrad_sum_kernel"))
+        voxels_in = a[0, 0].numel() * a.shape[0]
+        voxels_out = b[0, 0].numel() * b.shape[0]
+        Ci, Co = a.shape[1], b.shape[1]
+        # each output voxel against the weight entries of the taps that
+        # fall inside the input (the kernel skips the padding): the
+        # (voxel, tap) pairs, a product over the three dims. x and gy read
+        # once, the weight gradient written once
+        pairs = b.shape[0]
+        for n_in, n_out in zip(a.shape[2:], b.shape[2:]):
+            pairs *= sum(0 <= stride * o - 1 + k < n_in
+                         for k in range(3) for o in range(n_out))
+        flops = 2.0 * Co * Ci * pairs
+        n_bytes = 4.0 * (Ci * voxels_in + Co * voxels_out + Co * Ci * kwg.TAPS)
+        cases.append(dict(
+            conv=name, Ci=Ci, Co=Co, in_shape=list(a.shape[2:]),
+            out_shape=list(b.shape[2:]), stride=stride,
+            plan=kwg.plan(Co, Ci, b.shape[0] * b.shape[2] * b.shape[3],
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count),
+            max_abs_err=err, max_abs=float(want.abs().max()),
+            device_ms=device, ms=time_ms(torch, call),
+            plain_ms=time_ms(torch, functools.partial(kwg.wgrad_plain, a, b,
+                                                      stride)),
+            flops=flops, bytes=n_bytes))
+    for case in cases:
+        emit("wgrad_conv", **case)
+    bound, by = bound_ms(sum(c["bytes"] for c in cases),
+                         sum(c["flops"] for c in cases))
+    total = dict(device_ms=sum(c["device_ms"] for c in cases),
+                 ms=sum(c["ms"]["median"] for c in cases),
+                 plain_ms=sum(c["plain_ms"]["median"] for c in cases),
+                 bound_ms=bound, bound_by=by,
+                 max_rel_err=max(c["max_abs_err"] / c["max_abs"]
+                                 for c in cases))
+    emit("wgrad", convs=len(cases), **total)
+    return total
+
+
 def bench_train_config():
     """``tools/bench_train.py``'s workload in the port's config."""
     from enerf_tpu_torch.config import CascadeConfig, Config, ENeRFConfig
@@ -2260,10 +2369,11 @@ def phase_train(torch):
         phases.append(timer.stages_ms())
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # training runs the plain, differentiable cost volume and render stage
-    # and the depth-regression kernel (plain-recompute backward)
+    # training runs the plain, differentiable cost volume and render stage,
+    # the depth-regression kernel (plain-recompute backward) and the 3D
+    # convs' weight-gradient kernel
     expect = {"cost_volume": 0, "render": 0, "render_l0": 0,
-              "depth_regression": 2 * n}
+              "depth_regression": 2 * n, "conv3d_wgrad": WGRAD_PER_STEP * n}
     if launches != expect:
         fail(f"kernel launches on the train path {launches}, expected {expect}")
     for i, st in enumerate(losses):
@@ -3370,6 +3480,7 @@ import json, runpy, sys, time
 import torch
 import enerf_tpu_torch.train as T
 from enerf_tpu_torch.train.trainer import Trainer
+from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import depth_regression as kdr
 from enerf_tpu_torch.ops.kernels import render as krender
@@ -3377,7 +3488,7 @@ from enerf_tpu_torch.ops.kernels import render as krender
 rec = {"step_ms": [], "loss": [], "train_launches": {}, "val_launches": {}}
 def counts():
     return {"cost_volume": kcv.launches, **krender.launches,
-            "depth_regression": kdr.launches}
+            "depth_regression": kdr.launches, "conv3d_wgrad": kwg.launches}
 def add(into, before):
     for k, v in counts().items():
         into[k] = into.get(k, 0) + v - before[k]
@@ -3450,7 +3561,9 @@ def phase_train_cli(smi_line: str) -> dict:
     steps of actor1.yaml. Each step's ms (CUDA events), the loss, the peak memory;
     the checkpoints and ``config/`` files; K4 launched in training (K1 and
     K2 take their differentiable plain versions there) and the
-    validation's kernels launched."""
+    validation's kernels launched; the weight-gradient kernel (K5)
+    ``WGRAD_PER_STEP`` a ZJU-MoCap step and ``WGRAD_PER_STEP_COMPOSITE`` a
+    composite step, none in validation."""
     from enerf_tpu_torch.config import make_cfg
 
     import gc
@@ -3496,12 +3609,15 @@ def phase_train_cli(smi_line: str) -> dict:
         if len(rec["step_ms"]) != steps:
             fail(f"train_cli {name}: {len(rec['step_ms'])} steps, expected "
                  f"{steps}")
-        if rec["train_launches"].get("depth_regression") != 2 * steps:
-            fail(f"train_cli {name}: K4 launched {rec['train_launches']} in "
-                 f"{steps} train steps, expected 2 a step")
+        t = rec["train_launches"]
+        if (t.get("depth_regression"), t.get("conv3d_wgrad")) != (
+                2 * steps, WGRAD_PER_STEP * steps):
+            fail(f"train_cli {name}: launched {t} in {steps} train steps, "
+                 f"expected K4 2 and K5 {WGRAD_PER_STEP} a step")
     v = first["val_launches"]
     if not (v.get("cost_volume", 0) > 0 and v.get("render", 0) > 0
-            and v.get("render_l0", 0) > 0 and v.get("depth_regression", 0) > 0):
+            and v.get("render_l0", 0) > 0 and v.get("depth_regression", 0) > 0
+            and v.get("conv3d_wgrad") == 0):
         fail(f"train_cli zjumocap: the validation launched {v}")
     outdoor = ["--cfg_file", "configs/enerf/enerf_outdoor/actor1.yaml",
                "workspace", str(fixture), "train.epoch", "1", "ep_iter", "2",
@@ -3511,14 +3627,14 @@ def phase_train_cli(smi_line: str) -> dict:
                   ignore_errors=True)
     third, _ = run_train_cli(outdoor)
     k4_step = COMPOSITE_PER_FRAME["depth_regression"]
+    t = third["train_launches"]
     if len(third["step_ms"]) != 2 or \
-            third["train_launches"].get("depth_regression") != 2 * k4_step:
-        fail(f"train_cli actor1: 2 steps and K4 {k4_step} a step expected: "
-             f"{third}")
+            (t.get("depth_regression"), t.get("conv3d_wgrad")) != (
+                2 * k4_step, 2 * WGRAD_PER_STEP_COMPOSITE):
+        fail(f"train_cli actor1: 2 steps, K4 {k4_step} and K5 "
+             f"{WGRAD_PER_STEP_COMPOSITE} a step expected: {third}")
     launches = {k: first["train_launches"].get(k, 0)
-                + first["val_launches"].get(k, 0)
-                for k in ("cost_volume", "render", "render_l0",
-                          "depth_regression")}
+                + first["val_launches"].get(k, 0) for k in FRAMES_PER_FRAME}
     emit("train_cli", zjumocap=first, zjumocap_resume=second,
          actor1=third, launches=launches, checkpoints=sorted(have),
          nvidia_smi=smi_line)
@@ -3690,7 +3806,9 @@ def phase_ddp(torch, smi_line: str) -> dict:
     world1, _ = run_train_cli(["--distributed", *args], nproc=1)
     parts_s["world1_cli"] = world1["seconds"]
     if len(world1["step_ms"]) != DDP_CLI_STEPS or \
-            world1["train_launches"].get("depth_regression") != 2 * DDP_CLI_STEPS:
+            (world1["train_launches"].get("depth_regression"),
+             world1["train_launches"].get("conv3d_wgrad")) != (
+                2 * DDP_CLI_STEPS, WGRAD_PER_STEP * DDP_CLI_STEPS):
         fail(f"ddp world 1: {world1}")
     ckpt = torch.load(model_dir / "0.pth", map_location="cpu",
                       weights_only=True)
@@ -3753,10 +3871,11 @@ def phase_ddp(torch, smi_line: str) -> dict:
             max_err(torch, torch.from_numpy(v), buffers[k].cpu(),
                     DDP_STATS_TOL["rtol"], DDP_STATS_TOL["atol"],
                     f"ddp rank {r} {k} vs one process")
-        if rec["train_launches"]["depth_regression"] != 2 * DDP_TRAIN_STEPS:
-            fail(f"ddp rank {r}: train launches {rec['train_launches']}")
-        if rec["render_launches"] != {"cost_volume": 2, "render": 1,
-                                      "render_l0": 0, "depth_regression": 2}:
+        t = rec["train_launches"]
+        if (t["depth_regression"], t["conv3d_wgrad"]) != (
+                2 * DDP_TRAIN_STEPS, WGRAD_PER_STEP * DDP_TRAIN_STEPS):
+            fail(f"ddp rank {r}: train launches {t}")
+        if rec["render_launches"] != FRAMES_PER_FRAME:
             fail(f"ddp rank {r}: ray-split frame launches "
                  f"{rec['render_launches']}")
         timed = rec["step_ms"][1:]
@@ -3790,8 +3909,7 @@ def phase_ddp(torch, smi_line: str) -> dict:
     launches = {k: world1["train_launches"].get(k, 0)
                 + sum(rec["train_launches"][k] + rec["render_launches"][k]
                       for rec in ranks)
-                for k in ("cost_volume", "render", "render_l0",
-                          "depth_regression")}
+                for k in FRAMES_PER_FRAME}
     emit("ddp", world1_nccl={
              "steps": DDP_CLI_STEPS, "step_ms": world1["step_ms"],
              "loss": world1["loss"], "loss_without_distributed": ref_loss,
@@ -3853,6 +3971,7 @@ def main() -> None:
                   "val": val_calls}
     k4 = run_phase("k4", phase_k4, torch, cfg)
     floor = run_phase("k4_floor", phase_k4_floor, torch)
+    wgrad = run_phase("wgrad", phase_wgrad, torch)
     paths["train"], state, step, train_batch = run_phase("train", phase_train,
                                                          torch)
     profile_device(torch, "train_profile",
@@ -3957,6 +4076,11 @@ def main() -> None:
             plain_ms=sum(c["plain_ms"]["median"] for c in per_step),
             bound_ms=k4_bound, bound_by=k4_by,
             per_frame_by_path=on_paths("depth_regression")),
+        kernel_entry(
+            "conv3d_wgrad", "conv3d_wgrad",
+            **launches("conv3d_wgrad"),
+            # per train step: the 21 3D convs' weight gradients together
+            **wgrad),
     ] + bf16_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

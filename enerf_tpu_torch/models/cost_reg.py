@@ -12,7 +12,8 @@ cascade level 0.
 Returns (feature volume (B, D, H, W, 8) contiguous, depth logits
 (B, D, H, W)), both in the compute ``dtype``: in the bf16 mode the convs
 run in bf16 and the heads cast their input to it (JAX ``cost_reg.py:
-_dual_head``).
+_dual_head``). In float32 under autograd every conv's weight gradient is
+the port's kernel's (``models/layers.py:conv_f32``).
 """
 
 from __future__ import annotations
@@ -24,13 +25,14 @@ from torch import nn
 from enerf_tpu_torch.models.layers import (
     ConvBnReLU3D,
     ConvTransposeBn,
+    conv_f32,
     conv_in,
 )
 
 
 def _heads(x, feat_conv, depth_conv, dtype):
     if dtype == torch.float32:
-        feat, logits = feat_conv(x), depth_conv(x)
+        feat, logits = conv_f32(feat_conv[0], x), conv_f32(depth_conv[0], x)
     else:
         feat = conv_in(feat_conv[0], x, dtype)
         logits = conv_in(depth_conv[0], x, dtype)

@@ -9,7 +9,9 @@ output_padding 1: it exactly doubles each spatial dim.
 
 The conv blocks take a compute ``dtype`` (``conv_bn``): float32, or the
 bf16 mode of ``compute_dtype: bfloat16``, which casts the computation and
-never the parameters or the BN statistics.
+never the parameters or the BN statistics. In float32, a conv whose weight
+gradient autograd records takes it from the port's kernel where the
+kernel computes it (``conv_f32``).
 
 ``convert_sync_bn`` turns every BN of a model into the synced BN of a
 data-parallel run (``SyncBatchNorm2d`` / ``SyncBatchNorm3d``), whose
@@ -28,6 +30,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from enerf_tpu_torch.ops.kernels import conv3d_wgrad
 from enerf_tpu_torch.parallel.dist import world_size
 
 
@@ -45,6 +48,22 @@ def conv_in(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
         return fn(x, w, None, conv.stride, conv.padding, conv.output_padding,
                   conv.groups, conv.dilation)
     return conv._conv_forward(x, w, None)
+
+
+def conv_f32(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` in float32. Where autograd records the conv's weight
+    gradient (grad mode on, the weight requiring one) and the conv is one
+    the weight-gradient kernel takes (``conv3d_wgrad.takes``: every Conv3d
+    and ConvTranspose3d of the 3D CNNs), through
+    ``conv3d_wgrad.conv3d``: the same forward and input gradient, the
+    weight gradient by the kernel on a CUDA tensor. cuDNN's own float32
+    weight gradient of these convs runs a grouped-direct kernel far below
+    the card's rate. Eval, ``no_grad`` and ``inference_mode`` calls run
+    the module's forward."""
+    if (torch.is_grad_enabled() and conv.weight.requires_grad
+            and conv3d_wgrad.takes(conv)):
+        return conv3d_wgrad.conv3d(conv, x)
+    return conv(x)
 
 
 def conv_bias(conv: nn.Module, x: torch.Tensor,
@@ -76,14 +95,15 @@ def conv_bn(conv: nn.Module, bn: nn.modules.batchnorm._BatchNorm,
     """conv → BN (→ ReLU) in the compute type ``dtype``, rounding where the
     JAX package's layers round (``enerf_tpu/models/layers.py:98-228``).
 
-    float32: the modules' own forwards. Any other type, in training: the
-    conv in ``dtype``, then BN (batch statistics, running statistics
-    updated, the synced BN's merge included) and ReLU in float32, as
-    flax's BN built without a dtype computes. In eval: BN folded into the
-    conv in float32 (``fold_bn``), the folded weight and the bias cast to
-    ``dtype``, the conv, bias add and ReLU in ``dtype``."""
+    float32: the modules' own forwards, the conv through ``conv_f32``.
+    Any other type, in training: the conv in ``dtype``, then BN (batch
+    statistics, running statistics updated, the synced BN's merge
+    included) and ReLU in float32, as flax's BN built without a dtype
+    computes. In eval: BN folded into the conv in float32 (``fold_bn``),
+    the folded weight and the bias cast to ``dtype``, the conv, bias add
+    and ReLU in ``dtype``."""
     if dtype == torch.float32:
-        y = bn(conv(x))
+        y = bn(conv_f32(conv, x))
     elif bn.training:
         y = bn(conv_in(conv, x, dtype).float())
     else:

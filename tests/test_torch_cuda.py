@@ -715,3 +715,123 @@ def test_spans_on_card(cuda):
     dev = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
     assert {"enerf.render", *("enerf." + h for h in hooks)} <= host
     assert dev and not [n for n in dev if n.startswith("enerf.")]
+
+
+# the weight gradients of a 512x640 DTU train step's 3D convs (Ci, Co,
+# the volume the conv reads (D, H, W), stride, transposed), and ragged ones
+WGRAD_CASES = [
+    (16, 8, (8, 256, 320), 1, False),     # level 1, conv0
+    (8, 8, (8, 256, 320), 1, False),      # level 1, feat_conv
+    (8, 1, (8, 256, 320), 1, False),      # level 1, depth_conv
+    (8, 16, (8, 256, 320), 2, False),     # level 1, conv1
+    (32, 8, (64, 64, 80), 1, False),      # level 0, conv0
+    (64, 64, (1, 32, 40), 1, False),      # level 1, conv6
+    (32, 16, (2, 64, 80), 2, True),       # level 1, conv9 (transposed)
+    (16, 8, (4, 128, 160), 2, True),      # level 1, conv11 (transposed)
+    (8, 4, (5, 9, 13), 2, False),
+    (4, 12, (3, 7, 11), 1, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,Co,shape,stride,transposed", WGRAD_CASES)
+def test_conv3d_wgrad_kernel_matches_plain(cuda, Ci, Co, shape, stride,
+                                           transposed):
+    """The weight-gradient kernel against its plain version (cuDNN's
+    weight gradient through ``torch.ops.aten.convolution_backward``) on
+    channels-last tensors, through the autograd Function as the train step
+    calls it: one launch, the input gradient untouched, the weight
+    gradient within rtol 1e-4 and 1e-5 of its largest entry (both sum the
+    same float32 products, in other orders, over up to 655,360 voxels).
+    The forward is the module's own bit for bit; the input gradient is
+    cuDNN's, whose algorithm at some shapes adds its partial sums in an
+    order that changes from call to call (rtol 1e-5, atol 1e-6)."""
+    from torch import nn
+
+    from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
+
+    g = torch.Generator(device=cuda).manual_seed(Ci * 1000 + Co)
+    if transposed:
+        conv = nn.ConvTranspose3d(Ci, Co, 3, stride=2, padding=1,
+                                  output_padding=1, bias=False)
+    else:
+        conv = nn.Conv3d(Ci, Co, 3, stride=stride, padding=1, bias=False)
+    conv = conv.to(cuda)
+    x = torch.randn(1, Ci, *shape, device=cuda, generator=g).contiguous(
+        memory_format=torch.channels_last_3d).requires_grad_()
+    y = conv(x)
+    gy = torch.randn(y.shape, device=cuda, generator=g).contiguous(
+        memory_format=torch.channels_last_3d)
+    ref_x, ref_w = torch.autograd.grad(y, (x, conv.weight), gy)
+    before = kwg.launches
+    y2 = kwg.conv3d(conv, x)
+    got_x, got_w = torch.autograd.grad(y2, (x, conv.weight), gy)
+    torch.cuda.synchronize()
+    assert kwg.launches == before + 1
+    assert torch.equal(y2, y)
+    torch.testing.assert_close(got_x, ref_x, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_w, ref_w, rtol=1e-4,
+                               atol=1e-5 * float(ref_w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_train_step_3d_wgrad_on_card(cuda, monkeypatch):
+    """One f32 train step at the DTU train cell's shapes (512x640, 3
+    views, planes 64, 8, both levels) under torch.profiler: the 21 3D
+    convs' weight gradients by the kernel (21 launches) and no cuDNN
+    grouped-direct weight-gradient kernel. Each of the 21 routed weights'
+    gradient against the same step with cuDNN's weight gradients: the
+    step is not bit-reproducible on the card (atomic adds in the gathers'
+    backward move a 3D conv's gradient by 2e-5 to 2e-2 of its norm from
+    run to run), so each leaf's gap to a first cuDNN step is held to 3
+    times a second cuDNN step's gap to it on that leaf (a wrong conv moves
+    its leaf by its whole norm). The whole gradient as one vector, the
+    same way, and its cosine above 0.999, as a check of the rest."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import enerf_tpu_torch as et
+    from enerf_tpu_torch.config import CascadeConfig, Config, ENeRFConfig
+    from enerf_tpu_torch.models import layers
+    from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
+    from enerf_tpu_torch.train import create_train_state, make_train_step
+
+    h, w = 512, 640
+    cfg = Config(enerf=ENeRFConfig(
+        test_input_views=3, train_input_views=(3,), grid_rays=True,
+        cas_config=CascadeConfig(num=2, volume_planes=(64, 8))))
+    batch = make_synthetic_batch(cfg, H=h, W=w, split="train")
+    batch.pop("tar_img")
+    model = et.build_model(cfg, seed=0, train=True)
+    plain = [copy.deepcopy(model) for _ in range(2)]
+    routed = [n + ".weight" for n, m in model.named_modules()
+              if kwg.takes(m)]
+    assert len(routed) == 21
+    step = make_train_step(cfg, (h, w))
+    before = kwg.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(create_train_state(cfg, model), batch)
+        torch.cuda.synchronize()
+    assert kwg.launches == before + 21
+    names = {e.name for e in prof.events()}
+    assert not [n for n in names if "grouped_direct" in n and "wgrad" in n]
+    assert any("wgrad_partial_kernel" in n for n in names)
+    monkeypatch.setattr(layers.conv3d_wgrad, "takes", lambda conv: False)
+    for m in plain:
+        step(create_train_state(cfg, m), batch)
+
+    def grads(m):
+        return torch.cat([p.grad.double().flatten()
+                          for p in m.parameters() if p.grad is not None])
+
+    def gap(a, b):
+        return float((a - b).norm() / b.norm())
+
+    leaves = [dict(m.named_parameters()) for m in (plain[0], plain[1], model)]
+    for name in routed:
+        ref, other, got = (p[name].grad.double() for p in leaves)
+        assert gap(got, ref) <= max(3 * gap(other, ref), 1e-5), name
+    ref, other, got = grads(plain[0]), grads(plain[1]), grads(model)
+    assert gap(got, ref) <= max(3 * gap(other, ref), 1e-5)
+    assert float(got @ ref / (got.norm() * ref.norm())) > 0.999

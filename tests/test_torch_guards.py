@@ -19,6 +19,7 @@ import torch
 import enerf_tpu_torch
 from enerf_tpu_torch.config import dtu_eval_config, make_cfg
 from enerf_tpu_torch.ops.kernels import _build
+from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import render as krender
 from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
@@ -193,7 +194,8 @@ def test_kernel_loader_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("kernel", ["cost_volume", "cost_volume_crop",
-                                    "render", "render_l0", "render_cf19"])
+                                    "render", "render_l0", "render_cf19",
+                                    "conv3d_wgrad"])
 def test_wrappers_raise_off_cpu(kernel):
     """A tensor that is not on the CPU never takes the plain path: off a
     CUDA device the wrapper raises instead of computing; at a head shape no
@@ -202,10 +204,13 @@ def test_wrappers_raise_off_cpu(kernel):
     render head's parameters require a gradient, which the wrapper refuses
     first, see ``tests/test_torch_depth_kernel.py``.)"""
     meta = dict(device="meta", dtype=torch.float32)
-    before = (kcv.launches, dict(krender.launches))
+    before = (kcv.launches, dict(krender.launches), kwg.launches)
     match = "built for" if kernel == "render_cf19" else "CUDA"
     with torch.no_grad(), pytest.raises(ValueError, match=match):
-        if kernel.startswith("cost_volume"):
+        if kernel == "conv3d_wgrad":
+            kwg.wgrad(torch.empty(1, 8, 4, 4, 4, **meta),
+                      torch.empty(1, 8, 4, 4, 4, **meta), 1)
+        elif kernel.startswith("cost_volume"):
             window = None
             if kernel == "cost_volume_crop":
                 window = (torch.zeros(1, 2, dtype=torch.int32,
@@ -225,7 +230,7 @@ def test_wrappers_raise_off_cpu(kernel):
                 torch.empty(1, 8, 2, 2, 8, **meta), torch.empty(1, 3, 4, 4, **meta),
                 torch.empty(1, 3, 3, 3, **meta), torch.empty(1, 4, 4, **meta),
                 None, NeRFHead(cf).to("meta"), render_scale=1.0)
-    assert (kcv.launches, krender.launches) == before
+    assert (kcv.launches, krender.launches, kwg.launches) == before
 
 
 def test_config_copy_matches_jax():
