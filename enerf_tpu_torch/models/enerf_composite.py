@@ -94,9 +94,13 @@ class ENeRFComposite(nn.Module):
                 stage_hook: StageHook = None) -> Dict[str, torch.Tensor]:
         """The composite forward, one span a stage
         (``utils/profiling.span``: ``feature_net``, then per level ``fg_{i}``
-        — all fg layers' volumes, 3D CNNs, depth and raw renders —
-        ``bg_{i}`` and ``composite_{i}``); ``stage_hook(name)``, when given,
-        is called as each closes, right after the stage is enqueued."""
+        holding each fg layer's ``fg_cost_volume_{i}`` (the projections,
+        the planes, K1), ``fg_cost_reg_{i}`` (MinCostRegNet, the paste, K4)
+        and ``fg_render_{i}`` (the rays, the window crop, the raw head, the
+        paste), then ``bg_{i}`` holding ``bg_cost_volume_{i}``,
+        ``bg_cost_reg_{i}`` and ``bg_render_{i}``, then ``composite_{i}``);
+        ``stage_hook(name)``, when given, is called as each closes, right
+        after the stage is enqueued."""
         cas = self.cfg.cas_config
         L = self.cfg.num_fg_layers
         with span("feature_net", stage_hook):
@@ -111,77 +115,88 @@ class ENeRFComposite(nn.Module):
         fg_prev: List = [None] * L                 # (depth, std, near_far)
         bg_prev = None
         for i in range(cas.num):
+            vs, rs = cas.volume_scale[i], cas.render_scale[i]
+            Hv, Wv = scale_size(H_O, vs), scale_size(W_O, vs)
+            Hr, Wr = scale_size(H_O, rs), scale_size(W_O, rs)
+            projs = None
             with span(f"fg_{i}", stage_hook):
-                vs, rs = cas.volume_scale[i], cas.render_scale[i]
-                Hv, Wv = scale_size(H_O, vs), scale_size(W_O, vs)
-                Hr, Wr = scale_size(H_O, rs), scale_size(W_O, rs)
-                projs = get_proj_mats(batch["src_exts"], batch["src_ixts"],
-                                      batch["tar_ext"], batch["tar_ixt"],
-                                      src_scale=cas.im_feat_scale[i],
-                                      tar_scale=vs)
                 layers = []
                 for l in range(L):
-                    depth_values, near_far = self._planes(
-                        i, fg_prev[l], batch["near_far"][:, l],
-                        cas.volume_planes[i], Hv, Wv)
-                    hv, wv = int(fg_h * vs), int(fg_w * vs)
-                    xy0 = (bbox[:, l, :2] * vs).to(torch.int32)
-                    if self.training:
-                        volume = cost_volume_plain(
-                            feats[f"level_{i}"], projs, depth_values,
-                            view_mask, window=(xy0, (hv, wv)))
-                    else:
-                        volume = build_cost_volume_crop(
-                            feats[f"level_{i}"], projs, depth_values, xy0,
-                            (hv, wv), view_mask)
-                    _, logits = getattr(self, f"cost_reg_{i}_layer{l}")(volume)
-                    # pad back to the full frame (network_composite.py:102-103)
-                    logits = Window(xy0, (hv, wv), (Hv, Wv)).paste(logits,
-                                                                   planes=True)
-                    depth, std = depth_regression(logits, depth_values,
-                                                  cas.depth_inv[i])
-                    fg_prev[l] = (depth, std, near_far)
+                    with span(f"fg_cost_volume_{i}", stage_hook):
+                        if projs is None:
+                            projs = self._projs(i, batch)
+                        depth_values, near_far = self._planes(
+                            i, fg_prev[l], batch["near_far"][:, l],
+                            cas.volume_planes[i], Hv, Wv)
+                        hv, wv = int(fg_h * vs), int(fg_w * vs)
+                        xy0 = (bbox[:, l, :2] * vs).to(torch.int32)
+                        if self.training:
+                            volume = cost_volume_plain(
+                                feats[f"level_{i}"], projs, depth_values,
+                                view_mask, window=(xy0, (hv, wv)))
+                        else:
+                            volume = build_cost_volume_crop(
+                                feats[f"level_{i}"], projs, depth_values, xy0,
+                                (hv, wv), view_mask)
+                    with span(f"fg_cost_reg_{i}", stage_hook):
+                        _, logits = getattr(self, f"cost_reg_{i}_layer{l}")(
+                            volume)
+                        # pad back to the full frame
+                        # (network_composite.py:102-103)
+                        logits = Window(xy0, (hv, wv), (Hv, Wv)).paste(
+                            logits, planes=True)
+                        depth, std = depth_regression(logits, depth_values,
+                                                      cas.depth_inv[i])
+                        fg_prev[l] = (depth, std, near_far)
                     if not cas.render_if[i]:
                         continue
-                    rays = build_rays(batch[f"rays_{i}"], depth, std,
-                                      near_far, depth_inv=cas.depth_inv[i],
-                                      up_scale=rs / vs)
-                    # the rays of the window at render scale
-                    # (build_rays_composite, utils.py:219-252)
-                    hr, wr = int(fg_h * rs), int(fg_w * rs)
-                    win = Window((bbox[:, l, :2] * rs).to(torch.int32),
-                                 (hr, wr), (Hr, Wr))
-                    B = rays.shape[0]
-                    rays = win.crop(rays.reshape(B, Hr, Wr, -1))
-                    out = self.render_raw(
-                        i, rays.reshape(B, hr * wr, -1), feats,
-                        batch["src_inps"], getattr(self, f"nerf_{i}_layer{l}"),
-                        batch, view_mask)
-                    # into the full frame (parse_layer, utils.py:875-887)
-                    layers.append({
-                        k: win.paste(v.reshape((B, hr, wr) + v.shape[2:])
-                                     ).reshape((B, Hr * Wr) + v.shape[2:])
-                        for k, v in out.items()})
+                    with span(f"fg_render_{i}", stage_hook):
+                        rays = build_rays(batch[f"rays_{i}"], depth, std,
+                                          near_far,
+                                          depth_inv=cas.depth_inv[i],
+                                          up_scale=rs / vs)
+                        # the rays of the window at render scale
+                        # (build_rays_composite, utils.py:219-252)
+                        hr, wr = int(fg_h * rs), int(fg_w * rs)
+                        win = Window((bbox[:, l, :2] * rs).to(torch.int32),
+                                     (hr, wr), (Hr, Wr))
+                        B = rays.shape[0]
+                        rays = win.crop(rays.reshape(B, Hr, Wr, -1))
+                        out = self.render_raw(
+                            i, rays.reshape(B, hr * wr, -1), feats,
+                            batch["src_inps"],
+                            getattr(self, f"nerf_{i}_layer{l}"), batch,
+                            view_mask)
+                        # into the full frame (parse_layer, utils.py:875-887)
+                        layers.append({
+                            k: win.paste(v.reshape((B, hr, wr) + v.shape[2:])
+                                         ).reshape((B, Hr * Wr) + v.shape[2:])
+                            for k, v in out.items()})
 
             # background (network_composite.py:120-139)
             with span(f"bg_{i}", stage_hook):
-                depth_values, nf_bg = self._planes(
-                    i, bg_prev, batch["near_far"][:, -1],
-                    self.cfg.bg_volume_planes[i], Hv, Wv)
-                volume = (cost_volume_plain if self.training
-                          else build_cost_volume)(
-                    feats_bg[f"level_{i}"], projs, depth_values, view_mask)
-                _, logits = getattr(self, f"cost_reg_{i}_bg")(volume)
-                depth, std = depth_regression(logits, depth_values,
-                                              cas.depth_inv[i])
-                bg_prev = (depth, std, nf_bg)
+                with span(f"bg_cost_volume_{i}", stage_hook):
+                    if projs is None:
+                        projs = self._projs(i, batch)
+                    depth_values, nf_bg = self._planes(
+                        i, bg_prev, batch["near_far"][:, -1],
+                        self.cfg.bg_volume_planes[i], Hv, Wv)
+                    volume = (cost_volume_plain if self.training
+                              else build_cost_volume)(
+                        feats_bg[f"level_{i}"], projs, depth_values, view_mask)
+                with span(f"bg_cost_reg_{i}", stage_hook):
+                    _, logits = getattr(self, f"cost_reg_{i}_bg")(volume)
+                    depth, std = depth_regression(logits, depth_values,
+                                                  cas.depth_inv[i])
+                    bg_prev = (depth, std, nf_bg)
                 if cas.render_if[i]:
-                    rays = build_rays(batch[f"rays_{i}"], depth, std, nf_bg,
-                                      depth_inv=cas.depth_inv[i],
-                                      up_scale=rs / vs)
-                    layers.append(self.render_raw(
-                        i, rays, feats_bg, batch["bg_src_inps"],
-                        getattr(self, f"nerf_{i}_bg"), batch, view_mask))
+                    with span(f"bg_render_{i}", stage_hook):
+                        rays = build_rays(batch[f"rays_{i}"], depth, std,
+                                          nf_bg, depth_inv=cas.depth_inv[i],
+                                          up_scale=rs / vs)
+                        layers.append(self.render_raw(
+                            i, rays, feats_bg, batch["bg_src_inps"],
+                            getattr(self, f"nerf_{i}_bg"), batch, view_mask))
             if not cas.render_if[i]:
                 continue
             with span(f"composite_{i}", stage_hook):
@@ -189,6 +204,15 @@ class ENeRFComposite(nn.Module):
                                          white_bkgd=self.cfg.white_bkgd)
                 ret.update({f"{k}_level{i}": v for k, v in ret_i.items()})
         return ret
+
+    def _projs(self, level, batch):
+        """The level's projections from the target volume to the source
+        features (one set for every layer)."""
+        cas = self.cfg.cas_config
+        return get_proj_mats(batch["src_exts"], batch["src_ixts"],
+                             batch["tar_ext"], batch["tar_ixt"],
+                             src_scale=cas.im_feat_scale[level],
+                             tar_scale=cas.volume_scale[level])
 
     def _planes(self, level, prev, near_far, D, Hv, Wv):
         """A layer's depth planes: from the scene's near/far at level 0,

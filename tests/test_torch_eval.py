@@ -237,8 +237,8 @@ def test_val_slice_matches_jax(tmp_path, monkeypatch, capsys):
         dict(ev.scene_psnrs), dict(ev.scene_ssims), dict(ev.scene_lpips))),
         summarize())[1])
     outputs = []      # what Trainer.val renders, kept for the comparison
-    monkeypatch.setattr(trainer_mod, "render", lambda m, b: outputs.append(
-        render(m, b)) or outputs[-1])
+    monkeypatch.setattr(trainer_mod, "render", lambda m, b, **kw: outputs.append(
+        render(m, b, **kw)) or outputs[-1])
     rec = _Recorder()
     result = Trainer(cfg, train_step=None, recorder=rec).val(
         0, types.SimpleNamespace(model=model), [batch], evaluator=ev)
