@@ -26,6 +26,11 @@ Phases, each printing one JSON line:
            count, a white background; times as for k1, beside its bound
            (three TF32 passes on the tensor cores, the kernel's route, as
            for k2) and the f32 CUDA-core one
+  layer_render  the composite's layered render kernel (csrc/layer_render.cu)
+           on a frame of the outdoor_composite cell's scene (768x1024, 3
+           views, a 512x256 fg window), its call held against the plain
+           version; device, event, run and plain ms beside the bound from
+           benchmark/work_composite.py's layer_render bytes and FLOPs
   bf16     the bf16 compute mode (compute_dtype: bfloat16): the DTU,
            human, composite and val frames at full size (launches of the
            bf16 variants only, each counted from 0; frame ms by CUDA
@@ -94,7 +99,7 @@ Phases, each printing one JSON line:
   run_outdoor  the same for an ENeRF-Outdoor-layout actor1 (4 cameras x 2
            frames of 1080x1920 JPEGs, bkgd plates, intri/extri.yml,
            vhull, background.ply) on actor1.yaml (ENeRFComposite at
-           768x1024): K1 4, K4 4 a frame
+           768x1024): K1 4, K4 4, layer_render 1 a frame
   interactive  ``python -m enerf_tpu_torch.gui_human --headless 12`` in a
            subprocess on the ZJU-MoCap scene (configs/enerf/interactive/
            zjumocap.yaml: ENeRFHuman at 512x512, window (448, 288), 2 of
@@ -108,7 +113,8 @@ Phases, each printing one JSON line:
            by the port's reader
   visualize  ``enerf_tpu_torch.run``'s ``main`` with ``--type visualize`` on
            the outdoor scene (actor1_path.yaml, num_circle_view 4, one
-           view a scene frame): launches a frame K1 4, K4 4; frames,
+           view a scene frame): launches a frame K1 4, K4 4,
+           layer_render 1; frames,
            forward ms, the visualizer's and the encoding's host ms; the
            first frame vs the plain path; color.mp4 and depth.mp4 read
            back (frames, size, fps)
@@ -231,7 +237,8 @@ K4_BF16_TOL = {"depth": dict(rtol=1e-2, atol=0.0),
 # bf16-volume variants and K4's mixed variant compute in f32 from the same
 # bf16 values as their plain versions, and are held as in f32.
 BF16_TOLS = {"cost_volume": dict(rtol=2.0 ** -7, atol=1e-3),
-             "render": K2_TOL, "depth_regression": K4_TOL}
+             "render": K2_TOL, "depth_regression": K4_TOL,
+             "layer_render": K2_TOL}
 # The CPU yardstick: JAX's own bf16 forward vs its f32 forward, max |diff|
 # at the DTU eval configuration, 64x96, 3 views (the JAX package's jnp path
 # on the CPU). A bf16 frame is held to its bf16 plain path within half of
@@ -245,21 +252,33 @@ BF16_TRAIN_STEPS = 3  # timed bf16 train steps, after one
 # bf16 variant launches a frame on each bf16 path (K1-bf16, K2-bf16,
 # K2-L0-bf16, K4-mixed); every float32 variant launches none
 BF16_PER_FRAME = {
-    "dtu": (2, 1, 0, 2), "human": (2, 1, 0, 2), "composite": (4, 0, 0, 4),
-    "val": (2, 1, 1, 2), "train": (0, 0, 0, 2)}
+    "dtu": (2, 1, 0, 2, 0), "human": (2, 1, 0, 2, 0),
+    "composite": (4, 0, 0, 4, 1), "val": (2, 1, 1, 2, 0),
+    "train": (0, 0, 0, 2, 0)}
 BF16_KERNELS = ("cost_volume_bf16", "render_bf16", "render_l0_bf16",
-                "depth_regression_mixed")
+                "depth_regression_mixed", "layer_render_bf16")
 # kernel launches a frame (or a train step) on each main path; "render" is
-# csrc/render.cu (level 1's head), "render_l0" csrc/render_l0.cu (level 0's);
-# no frame records a gradient, so none launches the weight-gradient kernel
+# csrc/render.cu (level 1's head), "render_l0" csrc/render_l0.cu (level 0's),
+# "layer_render" csrc/layer_render.cu (the composite's layered render, once
+# a composite eval frame); no frame records a gradient, so none launches
+# the weight-gradient kernel
 FRAMES_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
-                    "depth_regression": 2, "conv3d_wgrad": 0}
+                    "depth_regression": 2, "conv3d_wgrad": 0,
+                    "layer_render": 0}
 HUMAN_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 0,
-                   "depth_regression": 2, "conv3d_wgrad": 0}
+                   "depth_regression": 2, "conv3d_wgrad": 0,
+                   "layer_render": 0}
 COMPOSITE_PER_FRAME = {"cost_volume": 4, "render": 0, "render_l0": 0,
-                       "depth_regression": 4, "conv3d_wgrad": 0}
+                       "depth_regression": 4, "conv3d_wgrad": 0,
+                       "layer_render": 1}
 VAL_PER_FRAME = {"cost_volume": 2, "render": 1, "render_l0": 1,
-                 "depth_regression": 2, "conv3d_wgrad": 0}
+                 "depth_regression": 2, "conv3d_wgrad": 0,
+                 "layer_render": 0}
+# the kernels whose products run on the tensor cores in TF32_PASSES passes
+TC_KERNELS = ("render", "render_l0", "layer_render")
+# the layered render at the outdoor_composite cell's shapes (phase
+# layer_render): 768x1024, 3 source views, a 512x256 fg window
+K6_HW, K6_WINDOW = (768, 1024), (512, 256)
 # the val main path: Trainer.val over this many frames, the first excluded
 # from the times (as many timed frames as the other frame phases)
 VAL_BATCHES = 1 + TIMED_FRAMES
@@ -288,6 +307,13 @@ KERNEL_SOURCES = {
         "enerf_tpu_torch/csrc/conv3d_wgrad.cu",
         "none (XLA's weight gradient of the 3D CNNs' convs)",
         "cuDNN's weight gradient is the plain version (plain_ms)"),
+    "layer_render": (
+        "enerf_tpu_torch/csrc/layer_render.cu",
+        "none (the composite's raw heads and layered compositing, which "
+        "the JAX package runs on XLA: render.py:378 render_rays_packed_xla's "
+        "raw mode, raw2outputs_composite)",
+        "no single PyTorch call shades the layers (projection, bilinear "
+        "gather, Agg, MLPs) and composites them"),
 }
 # the weight-gradient kernel's launches a float32 train step: one a 3D conv
 # whose weight gradient the step computes. DTU and ZJU-MoCap: MinCostRegNet's
@@ -433,6 +459,30 @@ def k2_work(args, out):
     io = nbytes(xyz, uvd, z, img, vol, out["rgb"], out["depth"],
                 out["weights"])
     return io, 2.0 * macs, (n_valid / B * per_view + shared)
+
+
+def k6_work(args, out):
+    """The bytes and operations of one layered render call: each layer's
+    samples (xyz, z) and the features and rgb its rays read (the bg
+    layer's whole tables, the fg layer's over its window, as
+    ``benchmark/work_composite.py`` counts an fg table), the outputs once;
+    the heads' multiply-adds as ``work_composite.head_macs`` counts them
+    and ``COMPOSITE_MACS`` a sample to composite, 2 operations each."""
+    from benchmark.work import COMPOSITE_MACS
+    from benchmark.work_composite import head_macs
+
+    fg, bg, win = args[:3]
+    B, S, H, W = bg.feat.shape[:4]
+    hr, wr = win.hw
+    io, flops = nbytes(out["rgb"], out["depth"], out["weights"]), 0.0
+    for lay, px in ((fg, hr * wr), (bg, H * W)):
+        pv, ps = head_macs(lay.head.feat_ch, lay.head.viewdir_agg)
+        samples = lay.world_xyz[..., 0].numel()
+        flops += 2.0 * (S * pv + ps + COMPOSITE_MACS) * samples
+        io += (nbytes(lay.world_xyz, lay.z_vals)
+               + B * S * px * (lay.feat.shape[-1] * lay.feat.element_size()
+                               + lay.rgb.shape[-1] * lay.rgb.element_size()))
+    return io, flops
 
 
 # ---------------------------------------------------------------------------
@@ -847,7 +897,9 @@ KERNEL_CALL_SITES = (
     ("cost_volume", "enerf_tpu_torch.ops.warp", "fused_cost_volume"),
     ("render", "enerf_tpu_torch.models.enerf", "render_rays"),
     ("depth_regression", "enerf_tpu_torch.ops.depth",
-     "kernel_depth_regression"))
+     "kernel_depth_regression"),
+    ("layer_render", "enerf_tpu_torch.ops.kernels.layer_render",
+     "layer_render"))
 
 
 @contextlib.contextmanager
@@ -873,11 +925,13 @@ def plain_path():
     version (for the on-card comparison only)."""
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import layer_render as klr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     plain = {"cost_volume": kcv.cost_volume_plain,
              "render": krender.render_rays_plain,
-             "depth_regression": kdr.depth_regression_plain}
+             "depth_regression": kdr.depth_regression_plain,
+             "layer_render": klr.layer_render_plain}
     return swapped_kernels(lambda kernel, wrapper: plain[kernel])
 
 
@@ -888,6 +942,8 @@ def recorded_kernel_calls(torch, calls: list):
     def snap(x):
         if isinstance(x, torch.Tensor):
             return x.clone()
+        if hasattr(x, "_fields"):    # a NamedTuple (layer_render's Layer)
+            return type(x)(*map(snap, x))
         if isinstance(x, (tuple, list)):
             return type(x)(snap(v) for v in x)
         if isinstance(x, dict):
@@ -926,6 +982,7 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
     import enerf_tpu_torch as et
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import layer_render as klr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     calls = []
@@ -942,7 +999,9 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
         "render_l0": (krender.render_rays, krender.render_rays_plain,
                       "render_l0_kernel"),
         "depth_regression": (kdr.depth_regression, kdr.depth_regression_plain,
-                             "depth_regression_kernel")}
+                             "depth_regression_kernel"),
+        "layer_render": (klr.layer_render, klr.layer_render_plain,
+                         "layer_render_kernel")}
     cases = []
     with torch.inference_mode():
         for i, (kernel, args, kw) in enumerate(calls):
@@ -954,7 +1013,8 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
             torch.cuda.synchronize()
             what = f"{path} call {i} {kernel}"
             case = dict(path=path, call=i, kernel=kernel)
-            volume = args[4] if kernel.startswith("render") else args[0]
+            volume = (args[4] if kernel.startswith("render") else
+                      args[0].feat if kernel == "layer_render" else args[0])
             tol = (BF16_TOLS[kernel.replace("_l0", "")]
                    if volume.dtype == torch.bfloat16 else None)
             if kernel == "cost_volume":
@@ -977,6 +1037,20 @@ def hold_path_kernels(torch, path, model, batch, per_frame):
                 case.update(shape=list(logits.shape), depth_inv=inv,
                             plan=list(kdr.plan(logits.shape[1],
                                                logits[:, 0].numel())),
+                            tol=tol)
+            elif kernel == "layer_render":
+                tol = tol or K2_TOL
+                err = max(max_err(torch, out[k], ref[k], what=f"{what} {k}",
+                                  **tol) for k in ("rgb", "depth", "weights"))
+                io, flops = k6_work(args, out)
+                bd, by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
+                fg, bg, win = args[:3]
+                case.update(rays=bg.world_xyz.shape[1],
+                            window_rays=fg.world_xyz.shape[1],
+                            window_origin=win.xy0.tolist(),
+                            slots=bg.feat.shape[1],
+                            views_valid=(None if args[6] is None
+                                         else float(args[6].sum())),
                             tol=tol)
             else:
                 tol = tol or K2_TOL
@@ -1022,7 +1096,7 @@ def cases_bound(kernel, cases, tensor_cores=True) -> tuple:
     """(bound ms, what bounds it) of ``cases``' calls of ``kernel``
     together: the render kernels' products on the tensor cores
     (TF32_PASSES passes) unless ``tensor_cores`` is False."""
-    tc = tensor_cores and kernel.startswith("render")
+    tc = tensor_cores and kernel in TC_KERNELS
     return bound_ms(sum(c["bytes"] for c in cases),
                     (TF32_PASSES if tc else 1) * sum(c["flops"] for c in cases),
                     TF32_FLOPS_PER_S if tc else F32_FLOPS_PER_S)
@@ -1052,21 +1126,26 @@ def reset_launches():
     from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import layer_render as klr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     kcv.launches = kdr.launches = kcv.launches_bf16 = kdr.launches_mixed = 0
     kwg.launches = 0
     krender.reset_launches()
+    klr.reset_launches()
 
 
 def read_launches() -> dict:
+    """The float32 variants' launches since the last reset, by kernel."""
     from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import layer_render as klr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     return {"cost_volume": kcv.launches, **krender.launches,
-            "depth_regression": kdr.launches, "conv3d_wgrad": kwg.launches}
+            "depth_regression": kdr.launches, "conv3d_wgrad": kwg.launches,
+            "layer_render": klr.launches}
 
 
 def drive_frames(torch, phase, model, batch, per_frame, shapes):
@@ -1311,6 +1390,94 @@ def phase_composite(torch):
     return launches, cases
 
 
+def phase_layer_render(torch):
+    """The layered render kernel (csrc/layer_render.cu) at the
+    outdoor_composite cell's shapes: a frame of the cell's scene
+    (``benchmark/scene_outdoor.py``: 768x1024, 3 source views, a 512x256
+    fg window) through the composite model (seeded weights, BN statistics
+    randomized), its ``layer_render`` call recorded and held on its own
+    against the plain version (max abs error; median and 99th-percentile
+    gaps); its device time (torch.profiler, mean of 20), CUDA-event time
+    around one call and over a run of calls, and the plain version's,
+    beside the bound from ``benchmark/work_composite.py``'s
+    ``layer_render_flops`` (three TF32 passes at the tensor cores' rate)
+    and ``layer_render_bytes``, and the bound ``layer_render_roofline``
+    takes from them (one TF32 pass), the call's own bound (``k6_work``)
+    and its f32 CUDA-core bound; ptxas' registers and spills. Returns the
+    phase's fields."""
+    import dataclasses
+
+    import enerf_tpu_torch as et
+    from benchmark import scene_outdoor
+    from benchmark import work_composite as wc
+    from benchmark.spec import cascade
+    from enerf_tpu_torch.config import composite_eval_config
+    from enerf_tpu_torch.ops.kernels import _build
+    from enerf_tpu_torch.ops.kernels import layer_render as klr
+
+    bench = ROOT / "benchmark"
+    cell = json.loads((bench / "configs/enerf_outdoor.json").read_text())
+    traffic = json.loads(
+        (bench / "traffic/outdoor_composite.json").read_text())
+    traffic["name"] = "outdoor_composite"
+    if (tuple(cell["image_hw"]), tuple(cell["enerf"]["fg_bbox_hw"])) != (
+            K6_HW, K6_WINDOW):
+        fail(f"layer_render: the cell's shapes {cell['image_hw']}, "
+             f"{cell['enerf']['fg_bbox_hw']} are not {K6_HW}, {K6_WINDOW}")
+    batch = scene_outdoor.make_frames(cell, traffic, 7, "cuda", 1)[0]
+    cfg = composite_eval_config()
+    cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
+        cfg.enerf, fg_bbox_hw=K6_WINDOW))
+    model = et.build_model(cfg, seed=0)
+    randomize_bn_stats(torch, model, seed=5)
+    calls = []
+    with recorded_kernel_calls(torch, calls):
+        et.render(model, batch)
+    k6 = [(a, k) for kernel, a, k in calls if kernel == "layer_render"]
+    if len(k6) != 1:
+        fail(f"layer_render: {len(k6)} calls in a composite frame")
+    args, kw = k6[0]
+    fn = functools.partial(klr.layer_render, *args, **kw)
+    plain_fn = functools.partial(klr.layer_render_plain, *args, **kw)
+    with torch.inference_mode():
+        out, ref = fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = max(max_err(torch, out[k], ref[k], what=f"layer_render {k}",
+                          **K2_TOL) for k in ("rgb", "depth", "weights"))
+        gaps = {k: {p: float(torch.quantile(
+            (out[k] - ref[k]).abs().flatten().double(), q))
+            for p, q in (("p50", 0.5), ("p99", 0.99))}
+            for k in ("rgb", "depth")}
+        dev = device_kernel_ms(torch, fn, "layer_render_kernel")
+        ev = time_ms(torch, fn)
+        run = run_ms(torch, fn)
+        plain = time_ms(torch, plain_fn, reps=5, warmup=1)
+    io, flops = k6_work(args, out)
+    cas = cascade(cell, False)
+    H0, W0 = cell["image_hw"]
+    S = cell["source_views"]
+    cell_flops = wc.layer_render_flops(cell, cas, H0, W0, S)
+    cell_bytes = wc.layer_render_bytes(cell, cas, H0, W0, S)
+    bd, by = bound_ms(cell_bytes, TF32_PASSES * cell_flops, TF32_FLOPS_PER_S)
+    # layer_render_roofline's bound: one pass at the TF32 rate
+    roof_bd, roof_by = bound_ms(cell_bytes, cell_flops, TF32_FLOPS_PER_S)
+    call_bd, call_by = bound_ms(io, TF32_PASSES * flops, TF32_FLOPS_PER_S)
+    fields = dict(
+        frame_hw=list(K6_HW), window_hw=list(K6_WINDOW), slots=S,
+        window_origin=args[2].xy0.tolist(), max_abs_err=err, tol=K2_TOL,
+        gaps=gaps, device_ms=dev, ms=ev, run_ms=run, plain_ms=plain,
+        bound_ms=bd, bound_by=by, bound_from="benchmark/work_composite.py",
+        work_flops=cell_flops, work_bytes=cell_bytes,
+        roofline_bound_ms=roof_bd, roofline_bound_by=roof_by,
+        roofline_share_of_kernel=roof_bd / dev,
+        call_bound_ms=call_bd, call_bound_by=call_by,
+        call_flops=flops, call_bytes=io,
+        bound_f32_ms=bound_ms(io, flops)[0],
+        ptxas=[ln for ln in ptxas_summary(_build.build_log("layer_render"))])
+    emit("layer_render", **fields)
+    return fields
+
+
 @contextlib.contextmanager
 def timed_val_frames(timer, frame_ms, stages):
     """``Trainer.val``'s render with the stage hook of ``timer``: each
@@ -1319,7 +1486,8 @@ def timed_val_frames(timer, frame_ms, stages):
     import enerf_tpu_torch as et
     import enerf_tpu_torch.train.trainer as trainer_mod
 
-    def render(model, batch):
+    def render(model, batch, stage_hook=None):
+        # Trainer.val passes its own hook (None here): the timer's is used
         timer.start()
         out = et.render(model, batch, stage_hook=timer)
         frame_ms.append(timer.total_ms())
@@ -1947,11 +2115,13 @@ def read_bf16_launches() -> dict:
     """The bf16 variants' launch counts (``BF16_KERNELS`` order)."""
     from enerf_tpu_torch.ops.kernels import cost_volume as kcv
     from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+    from enerf_tpu_torch.ops.kernels import layer_render as klr
     from enerf_tpu_torch.ops.kernels import render as krender
 
     return dict(zip(BF16_KERNELS, (
         kcv.launches_bf16, krender.launches_bf16["render"],
-        krender.launches_bf16["render_l0"], kdr.launches_mixed)))
+        krender.launches_bf16["render_l0"], kdr.launches_mixed,
+        klr.launches_bf16)))
 
 
 def check_bf16_launches(path, n):
@@ -2027,7 +2197,8 @@ def bf16_frame(torch, path, m32, m16, batch, render_frames=None):
     if not all(g > 0 for g in gap.values()):
         fail(f"bf16 {path}: the bf16 frame equals the float32 one {gap}")
     per_frame = dict(zip(("cost_volume", "render", "render_l0",
-                          "depth_regression"), BF16_PER_FRAME[path]))
+                          "depth_regression", "layer_render"),
+                         BF16_PER_FRAME[path]))
     cases = hold_path_kernels(torch, f"bf16_{path}", m16, batch, per_frame)
     emit_cases(cases)
     fields = dict(launches=launches, frame_ms=frame,
@@ -2043,8 +2214,12 @@ def float32_twin(torch, call):
     """``call`` (a ``functools.partial`` of a kernel wrapper) with every
     bfloat16 tensor argument in float32: the float32 variant's launch on
     the same values."""
-    f32 = lambda a: (a.float() if isinstance(a, torch.Tensor)  # noqa: E731
-                     and a.dtype == torch.bfloat16 else a)
+    def f32(a):
+        if hasattr(a, "_fields"):    # a NamedTuple (layer_render's Layer)
+            return type(a)(*map(f32, a))
+        return (a.float() if isinstance(a, torch.Tensor)
+                and a.dtype == torch.bfloat16 else a)
+
     return functools.partial(call.func, *map(f32, call.args),
                              **call.keywords)
 
@@ -2179,7 +2354,9 @@ def phase_bf16(torch):
                                ("render_bf16", "render", "dtu"),
                                ("render_l0_bf16", "render_l0", "val"),
                                ("depth_regression_mixed", "depth_regression",
-                                "dtu")):
+                                "dtu"),
+                               ("layer_render_bf16", "layer_render",
+                                "composite")):
         cs = [c for c in cases[path] if c["kernel"] == kernel]
         with torch.inference_mode():
             dev = [device_kernel_ms(torch, c["fn"], c["symbol"], label=name)
@@ -2203,7 +2380,7 @@ def phase_bf16(torch):
             device_ms_by_call=dev, float32_device_ms=sum(dev32),
             plain_ms=sum(plain), bound_ms=bd, bound_by=by,
             tol=BF16_TOLS[kernel.replace("_l0", "")])
-        if kernel.startswith("render"):
+        if kernel in TC_KERNELS:
             entry["bound_f32_ms"] = cases_bound(kernel, cs,
                                                 tensor_cores=False)[0]
         kernels.append(entry)
@@ -2373,7 +2550,8 @@ def phase_train(torch):
     # the depth-regression kernel (plain-recompute backward) and the 3D
     # convs' weight-gradient kernel
     expect = {"cost_volume": 0, "render": 0, "render_l0": 0,
-              "depth_regression": 2 * n, "conv3d_wgrad": WGRAD_PER_STEP * n}
+              "depth_regression": 2 * n, "conv3d_wgrad": WGRAD_PER_STEP * n,
+              "layer_render": 0}
     if launches != expect:
         fail(f"kernel launches on the train path {launches}, expected {expect}")
     for i, st in enumerate(losses):
@@ -2869,7 +3047,7 @@ def phase_run_outdoor(torch, smi_line: str) -> dict:
     configs/enerf/enerf_outdoor/actor1.yaml (``ENeRFComposite`` at
     768x1024 from the 1080x1920 JPEGs: ratio 0.75, then the crop; 1 fg
     layer, planes (32, 8)): a frame launches K1 4 (full frame and fg
-    crops), K4 4, and renders on the plain raw head."""
+    crops), K4 4 and the layered render 1."""
     from enerf_tpu_torch.config import make_cfg
     from enerf_tpu_torch.utils.camera_io import read_camera
 
@@ -3415,7 +3593,8 @@ def phase_visualize(torch, smi_line: str) -> dict:
     visualize`` on configs/enerf/enerf_outdoor/actor1_path.yaml over
     ``run_outdoor``'s scene (``ENeRFComposite`` at 768x1024, the orbit of
     ``num_circle_view`` 4, a frame a scene frame): launches a frame K1 4,
-    K4 4; frames, forward ms, the visualizer's and the encoding's host
+    K4 4, layer_render 1; frames, forward ms, the visualizer's and the
+    encoding's host
     ms; the first frame vs the plain path; ``color.mp4`` and
     ``depth.mp4`` read back (frames, size, fps)."""
     import enerf_tpu_torch as et
@@ -3483,12 +3662,14 @@ from enerf_tpu_torch.train.trainer import Trainer
 from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+from enerf_tpu_torch.ops.kernels import layer_render as klr
 from enerf_tpu_torch.ops.kernels import render as krender
 
 rec = {"step_ms": [], "loss": [], "train_launches": {}, "val_launches": {}}
 def counts():
     return {"cost_volume": kcv.launches, **krender.launches,
-            "depth_regression": kdr.launches, "conv3d_wgrad": kwg.launches}
+            "depth_regression": kdr.launches, "conv3d_wgrad": kwg.launches,
+            "layer_render": klr.launches}
 def add(into, before):
     for k, v in counts().items():
         into[k] = into.get(k, 0) + v - before[k]
@@ -3610,14 +3791,15 @@ def phase_train_cli(smi_line: str) -> dict:
             fail(f"train_cli {name}: {len(rec['step_ms'])} steps, expected "
                  f"{steps}")
         t = rec["train_launches"]
-        if (t.get("depth_regression"), t.get("conv3d_wgrad")) != (
-                2 * steps, WGRAD_PER_STEP * steps):
+        if (t.get("depth_regression"), t.get("conv3d_wgrad"),
+                t.get("layer_render")) != (2 * steps,
+                                           WGRAD_PER_STEP * steps, 0):
             fail(f"train_cli {name}: launched {t} in {steps} train steps, "
-                 f"expected K4 2 and K5 {WGRAD_PER_STEP} a step")
+                 f"expected K4 2, K5 {WGRAD_PER_STEP} and K6 0 a step")
     v = first["val_launches"]
     if not (v.get("cost_volume", 0) > 0 and v.get("render", 0) > 0
             and v.get("render_l0", 0) > 0 and v.get("depth_regression", 0) > 0
-            and v.get("conv3d_wgrad") == 0):
+            and v.get("conv3d_wgrad") == 0 and v.get("layer_render") == 0):
         fail(f"train_cli zjumocap: the validation launched {v}")
     outdoor = ["--cfg_file", "configs/enerf/enerf_outdoor/actor1.yaml",
                "workspace", str(fixture), "train.epoch", "1", "ep_iter", "2",
@@ -3629,10 +3811,11 @@ def phase_train_cli(smi_line: str) -> dict:
     k4_step = COMPOSITE_PER_FRAME["depth_regression"]
     t = third["train_launches"]
     if len(third["step_ms"]) != 2 or \
-            (t.get("depth_regression"), t.get("conv3d_wgrad")) != (
-                2 * k4_step, 2 * WGRAD_PER_STEP_COMPOSITE):
-        fail(f"train_cli actor1: 2 steps, K4 {k4_step} and K5 "
-             f"{WGRAD_PER_STEP_COMPOSITE} a step expected: {third}")
+            (t.get("depth_regression"), t.get("conv3d_wgrad"),
+             t.get("layer_render")) != (
+                2 * k4_step, 2 * WGRAD_PER_STEP_COMPOSITE, 0):
+        fail(f"train_cli actor1: 2 steps, K4 {k4_step}, K5 "
+             f"{WGRAD_PER_STEP_COMPOSITE} and K6 0 a step expected: {third}")
     launches = {k: first["train_launches"].get(k, 0)
                 + first["val_launches"].get(k, 0) for k in FRAMES_PER_FRAME}
     emit("train_cli", zjumocap=first, zjumocap_resume=second,
@@ -3947,6 +4130,7 @@ def main() -> None:
     k1_crop = run_phase("k1_crop", phase_k1_crop, torch)
     k2 = run_phase("k2", phase_k2, torch, cfg)
     k2_l0 = run_phase("k2_l0", phase_k2_l0, torch, cfg)
+    k6 = run_phase("layer_render", phase_layer_render, torch)
     bf16_paths, bf16_kernels = run_phase("bf16", phase_bf16, torch)
     paths = {}
     paths["frames"], model, batch = run_phase("frames", phase_frames, torch,
@@ -4081,6 +4265,15 @@ def main() -> None:
             **launches("conv3d_wgrad"),
             # per train step: the 21 3D convs' weight gradients together
             **wgrad),
+        kernel_entry(
+            "layer_render", "layer_render", **launches("layer_render"),
+            max_abs_err=max(k6["max_abs_err"], path_err("layer_render")),
+            # the outdoor_composite cell's frame: one call
+            ms=k6["ms"]["median"], run_ms=k6["run_ms"],
+            device_ms=k6["device_ms"], plain_ms=k6["plain_ms"]["median"],
+            bound_ms=k6["bound_ms"], bound_by=k6["bound_by"],
+            bound_f32_ms=k6["bound_f32_ms"],
+            per_frame_by_path=on_paths("layer_render")),
     ] + bf16_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

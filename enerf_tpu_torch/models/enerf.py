@@ -242,10 +242,10 @@ def fpn_features(feature_net: FeatureNet, src_inps: torch.Tensor
     }
 
 
-def image_features(cas, level: int, feats: Dict[str, torch.Tensor],
-                   src_inps: torch.Tensor) -> torch.Tensor:
-    """The level's image features ‖ source rgb at render scale,
-    (B, S, H, W, C + 3); ``cas`` the cascade config."""
+def image_tables(cas, level: int, feats: Dict[str, torch.Tensor],
+                 src_inps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The level's image features (B, S, H, W, C) and source rgb (B, S, H,
+    W, 3) at render scale; ``cas`` the cascade config."""
     rgbs = unpreprocess(src_inps, render_scale=cas.render_scale[level])
     im_feat = feats[f"level_{cas.render_im_feat_level[level]}"]
     up_feat_scale = cas.render_scale[level] / cas.im_ibr_scale[level]
@@ -253,4 +253,11 @@ def image_features(cas, level: int, feats: Dict[str, torch.Tensor],
         h, w = im_feat.shape[2:4]
         im_feat = resize_bilinear(im_feat, (scale_size(h, up_feat_scale),
                                             scale_size(w, up_feat_scale)))
-    return torch.cat([im_feat, rgbs], dim=-1)
+    return im_feat, rgbs
+
+
+def image_features(cas, level: int, feats: Dict[str, torch.Tensor],
+                   src_inps: torch.Tensor) -> torch.Tensor:
+    """The level's image features ‖ source rgb at render scale,
+    (B, S, H, W, C + 3) (``image_tables`` joined)."""
+    return torch.cat(image_tables(cas, level, feats, src_inps), dim=-1)

@@ -20,16 +20,21 @@ float32 in the batch, is scaled and truncated as the JAX package's
 ``dynamic_slice`` / ``dynamic_update_slice`` are. The whole forward is
 batch-native.
 
-The render stage is the heads' plain raw output (``use_vox_feat=False``:
-the head reads no volume feature, so the fg feature volume is never padded
-back or sampled) — as the JAX package runs it, on differentiable XLA and
-not on a Pallas kernel. The cost volumes (K1) and depth regression (K4)
-run their CUDA kernels in eval.
+The heads read no volume feature (``use_vox_feat=False``), so the fg
+feature volume is never padded back or sampled. The JAX package runs them
+raw on differentiable XLA, not on a Pallas kernel; so does this model in
+training and wherever ``layer_render.takes`` refuses a level. In eval with
+one fg layer and one sample a layer (ENeRF-Outdoor's level 1),
+``layer_render`` shades both layers and composites them in one CUDA
+kernel (``csrc/layer_render.cu``) on the card, from each layer's features
+and rgb, with no image table, paste or concatenation. The cost volumes
+(K1) and depth regression (K4) run their CUDA kernels in eval.
 
 ``dtype`` is the compute type, as ``ENeRF``'s (the bf16 mode: FPNs and 3D
-CNNs in bf16, K1's bf16 variant, K4's mixed one; the heads in f32, as the
-JAX package's packed head runs, ``enerf_tpu/models/enerf_composite.py:
-170-207``; in training the image table rounded to bf16).
+CNNs in bf16, K1's bf16 variant, K4's mixed one, the layered render's bf16
+feature variant; the heads in f32, as the JAX package's packed head runs,
+``enerf_tpu/models/enerf_composite.py:170-207``; in training the image
+table rounded to bf16).
 """
 
 from __future__ import annotations
@@ -41,18 +46,23 @@ from torch import nn
 
 from enerf_tpu_torch.config import ENeRFConfig
 from enerf_tpu_torch.models.cost_reg import MinCostRegNet
-from enerf_tpu_torch.models.enerf import FEAT_CH, fpn_features, image_features
+from enerf_tpu_torch.models.enerf import (
+    FEAT_CH,
+    fpn_features,
+    image_features,
+    image_tables,
+)
 from enerf_tpu_torch.models.feature_net import FeatureNet
 from enerf_tpu_torch.models.layers import init_weights
 from enerf_tpu_torch.models.nerf_head import NeRFHead
 from enerf_tpu_torch.ops.camera import get_proj_mats
-from enerf_tpu_torch.ops.composite import exclusive_cumprod
+from enerf_tpu_torch.ops.composite import composite_layers
 from enerf_tpu_torch.ops.depth import (
     cascade_depth_values,
     depth_regression,
     init_depth_values,
 )
-from enerf_tpu_torch.ops.ibr import get_img_feat
+from enerf_tpu_torch.ops.kernels import layer_render as klr
 from enerf_tpu_torch.ops.kernels.cost_volume import cost_volume_plain
 from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 from enerf_tpu_torch.ops.sampling import scale_size
@@ -96,11 +106,18 @@ class ENeRFComposite(nn.Module):
         (``utils/profiling.span``: ``feature_net``, then per level ``fg_{i}``
         holding each fg layer's ``fg_cost_volume_{i}`` (the projections,
         the planes, K1), ``fg_cost_reg_{i}`` (MinCostRegNet, the paste, K4)
-        and ``fg_render_{i}`` (the rays, the window crop, the raw head, the
-        paste), then ``bg_{i}`` holding ``bg_cost_volume_{i}``,
-        ``bg_cost_reg_{i}`` and ``bg_render_{i}``, then ``composite_{i}``);
+        and ``fg_render_{i}`` (the rays, the window crop, the samples), then
+        ``bg_{i}`` holding ``bg_cost_volume_{i}``, ``bg_cost_reg_{i}`` and
+        ``bg_render_{i}`` (the rays, the samples), then ``composite_{i}``);
         ``stage_hook(name)``, when given, is called as each closes, right
-        after the stage is enqueued."""
+        after the stage is enqueued.
+
+        A rendered level whose layers ``layer_render.takes`` (in eval: one
+        fg layer, one sample a layer) is shaded and composited in
+        ``composite_{i}`` by ``layer_render`` (the kernel on the card).
+        Otherwise each layer's raw head runs in its render span, the fg
+        output is pasted into the frame there, and ``composite_{i}`` runs
+        ``composite_layers``."""
         cas = self.cfg.cas_config
         L = self.cfg.num_fg_layers
         with span("feature_net", stage_hook):
@@ -119,6 +136,12 @@ class ENeRFComposite(nn.Module):
             Hv, Wv = scale_size(H_O, vs), scale_size(W_O, vs)
             Hr, Wr = scale_size(H_O, rs), scale_size(W_O, rs)
             projs = None
+            fused = (cas.render_if[i] and not self.training and klr.takes(
+                [getattr(self, f"nerf_{i}_layer{l}") for l in range(L)],
+                getattr(self, f"nerf_{i}_bg"), cas.num_samples[i],
+                feats[f"level_{cas.render_im_feat_level[i]}"],
+                feats_bg[f"level_{cas.render_im_feat_level[i]}"],
+                batch["src_inps"], batch["bg_src_inps"]))
             with span(f"fg_{i}", stage_hook):
                 layers = []
                 for l in range(L):
@@ -161,17 +184,23 @@ class ENeRFComposite(nn.Module):
                         win = Window((bbox[:, l, :2] * rs).to(torch.int32),
                                      (hr, wr), (Hr, Wr))
                         B = rays.shape[0]
-                        rays = win.crop(rays.reshape(B, Hr, Wr, -1))
-                        out = self.render_raw(
-                            i, rays.reshape(B, hr * wr, -1), feats,
-                            batch["src_inps"],
-                            getattr(self, f"nerf_{i}_layer{l}"), batch,
-                            view_mask)
-                        # into the full frame (parse_layer, utils.py:875-887)
-                        layers.append({
-                            k: win.paste(v.reshape((B, hr, wr) + v.shape[2:])
-                                         ).reshape((B, Hr * Wr) + v.shape[2:])
-                            for k, v in out.items()})
+                        rays = win.crop(rays.reshape(B, Hr, Wr, -1)).reshape(
+                            B, hr * wr, -1)
+                        head = getattr(self, f"nerf_{i}_layer{l}")
+                        if fused:
+                            fg_layer = self._layer(i, rays, feats,
+                                                   batch["src_inps"], head)
+                        else:
+                            out = self.render_raw(i, rays, feats,
+                                                  batch["src_inps"], head,
+                                                  batch, view_mask)
+                            # into the full frame (parse_layer,
+                            # utils.py:875-887)
+                            layers.append({
+                                k: win.paste(
+                                    v.reshape((B, hr, wr) + v.shape[2:])
+                                ).reshape((B, Hr * Wr) + v.shape[2:])
+                                for k, v in out.items()})
 
             # background (network_composite.py:120-139)
             with span(f"bg_{i}", stage_hook):
@@ -194,14 +223,25 @@ class ENeRFComposite(nn.Module):
                         rays = build_rays(batch[f"rays_{i}"], depth, std,
                                           nf_bg, depth_inv=cas.depth_inv[i],
                                           up_scale=rs / vs)
-                        layers.append(self.render_raw(
-                            i, rays, feats_bg, batch["bg_src_inps"],
-                            getattr(self, f"nerf_{i}_bg"), batch, view_mask))
+                        head = getattr(self, f"nerf_{i}_bg")
+                        if fused:
+                            bg_layer = self._layer(i, rays, feats_bg,
+                                                   batch["bg_src_inps"], head)
+                        else:
+                            layers.append(self.render_raw(
+                                i, rays, feats_bg, batch["bg_src_inps"], head,
+                                batch, view_mask))
             if not cas.render_if[i]:
                 continue
             with span(f"composite_{i}", stage_hook):
-                ret_i = composite_layers(layers, num_fg_layers=L,
-                                         white_bkgd=self.cfg.white_bkgd)
+                if fused:
+                    ret_i = klr.layer_render(
+                        fg_layer, bg_layer, win, batch["src_exts"],
+                        batch["src_ixts"], batch["tar_ext"], view_mask,
+                        render_scale=rs, white_bkgd=self.cfg.white_bkgd)
+                else:
+                    ret_i = composite_layers(layers, num_fg_layers=L,
+                                             white_bkgd=self.cfg.white_bkgd)
                 ret.update({f"{k}_level{i}": v for k, v in ret_i.items()})
         return ret
 
@@ -226,6 +266,24 @@ class ENeRFComposite(nn.Module):
             depth_inv_cur=cas.depth_inv[level],
             up_scale=cas.volume_scale[level] / cas.volume_scale[level - 1])
 
+    def _samples(self, level, rays):
+        """A layer's samples of its rays (B, N, 12): world_xyz (B, N, n, 3)
+        and z_vals (B, N, n) as composited, as depth (1/z on a disparity
+        level)."""
+        cas = self.cfg.cas_config
+        world_xyz, _, z_vals = sample_along_depth(
+            rays, n_samples=cas.num_samples[level],
+            depth_inv=cas.depth_inv[level])
+        if cas.depth_inv[level]:
+            z_vals = 1.0 / torch.clamp(z_vals, min=1e-6)
+        return world_xyz, z_vals
+
+    def _layer(self, level, rays, feats, src_inps, head) -> klr.Layer:
+        """A layer's samples and what shades them, for ``layer_render``."""
+        return klr.Layer(*self._samples(level, rays),
+                         *image_tables(self.cfg.cas_config, level, feats,
+                                       src_inps), head)
+
     def render_raw(self, level, rays, feats, src_inps, head, batch, view_mask
                    ) -> Dict[str, torch.Tensor]:
         """One layer's raw samples, not composited (reference
@@ -233,42 +291,11 @@ class ENeRFComposite(nn.Module):
         sigma and ``z_vals`` (B, N, n), as depth (1/z on a disparity
         level)."""
         cas = self.cfg.cas_config
-        world_xyz, _, z_vals = sample_along_depth(
-            rays, n_samples=cas.num_samples[level],
-            depth_inv=cas.depth_inv[level])
-        B, N, n = world_xyz.shape[:3]
-        img_feat_rgb_dir = get_img_feat(
-            world_xyz, image_features(cas, level, feats, src_inps),
-            batch["src_exts"], batch["src_ixts"], batch["tar_ext"],
-            render_scale=cas.render_scale[level],
+        world_xyz, z_vals = self._samples(level, rays)
+        raw = klr.shade_raw(
+            world_xyz, image_features(cas, level, feats, src_inps), head,
+            batch["src_exts"], batch["src_ixts"], batch["tar_ext"], view_mask,
+            cas.render_scale[level],
             table_bf16=self.training and self.dtype == torch.bfloat16)
-        raw = head(None, img_feat_rgb_dir, view_mask).reshape(B, N, n, -1)
-        if cas.depth_inv[level]:
-            z_vals = 1.0 / torch.clamp(z_vals, min=1e-6)
         return {"net_output": raw, "z_vals": z_vals}
 
-
-def composite_layers(layers, num_fg_layers: int, white_bkgd: bool
-                     ) -> Dict[str, torch.Tensor]:
-    """The fg layers' samples (``layers[:num_fg_layers]``) z-sorted when
-    there are several, the bg samples (``layers[-1]``) appended, then
-    alpha-composited (reference utils.py:889-942 raw2outputs_composite):
-    rgb, depth = Σ weights·z (z held constant), weights."""
-    net_output = torch.cat([lay["net_output"] for lay in layers[:num_fg_layers]],
-                           dim=-2)
-    z_vals = torch.cat([lay["z_vals"] for lay in layers[:num_fg_layers]],
-                       dim=-1)
-    if num_fg_layers > 1:
-        idx = torch.argsort(z_vals, dim=-1, stable=True)
-        z_vals = torch.take_along_dim(z_vals, idx, dim=-1)
-        net_output = torch.take_along_dim(net_output, idx[..., None], dim=-2)
-    net_output = torch.cat([net_output, layers[-1]["net_output"]], dim=-2)
-    z_vals = torch.cat([z_vals, layers[-1]["z_vals"]], dim=-1)
-
-    alpha = 1.0 - torch.exp(-net_output[..., 3])
-    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
-    rgb_map = torch.sum(weights[..., None] * net_output[..., :3], dim=-2)
-    depth_map = torch.sum(weights * z_vals.detach(), dim=-1)
-    if white_bkgd:
-        rgb_map = rgb_map + (1.0 - torch.sum(weights, dim=-1)[..., None])
-    return {"rgb": rgb_map, "depth": depth_map, "weights": weights}

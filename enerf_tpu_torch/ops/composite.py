@@ -1,7 +1,8 @@
 """Alpha compositing of per-sample radiance; counterpart of
 ``enerf_tpu/ops/composite.py`` (reference lib/networks/enerf/utils.py:
 488-603: raw2outputs and its two variants, which the stock forward does not
-use).
+use; 889-942: raw2outputs_composite, the composite model's
+``composite_layers``).
 
 ENeRF's peculiarities: alpha = 1 - exp(-sigma) with **no dists term**
 (samples are depth-guided), and the depth map is softmax(weights)·z, not
@@ -90,3 +91,29 @@ def raw2outputs_layer(net_outputs, z_vals_list, white_bkgd: bool = False
     out = _composite(raw_sorted, z_sorted, alpha, white_bkgd)
     out.update(idx=idx, net_output=raw, z_vals=z)
     return out
+
+
+def composite_layers(layers, num_fg_layers: int, white_bkgd: bool
+                     ) -> Dict[str, torch.Tensor]:
+    """The fg layers' samples (``layers[:num_fg_layers]``) z-sorted when
+    there are several, the bg samples (``layers[-1]``) appended, then
+    alpha-composited (reference utils.py:889-942 raw2outputs_composite):
+    rgb, depth = Σ weights·z (z held constant), weights."""
+    net_output = torch.cat([lay["net_output"] for lay in layers[:num_fg_layers]],
+                           dim=-2)
+    z_vals = torch.cat([lay["z_vals"] for lay in layers[:num_fg_layers]],
+                       dim=-1)
+    if num_fg_layers > 1:
+        idx = torch.argsort(z_vals, dim=-1, stable=True)
+        z_vals = torch.take_along_dim(z_vals, idx, dim=-1)
+        net_output = torch.take_along_dim(net_output, idx[..., None], dim=-2)
+    net_output = torch.cat([net_output, layers[-1]["net_output"]], dim=-2)
+    z_vals = torch.cat([z_vals, layers[-1]["z_vals"]], dim=-1)
+
+    alpha = 1.0 - torch.exp(-net_output[..., 3])
+    weights = alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
+    rgb_map = torch.sum(weights[..., None] * net_output[..., :3], dim=-2)
+    depth_map = torch.sum(weights * z_vals.detach(), dim=-1)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - torch.sum(weights, dim=-1)[..., None])
+    return {"rgb": rgb_map, "depth": depth_map, "weights": weights}

@@ -70,12 +70,21 @@ def head_params(head) -> torch.Tensor:
     """The NeRFHead's weights as the kernels' flat f32 buffer: each
     Linear's (out, in) weight then its bias, in the order view_fc,
     global_fc, agg_w_fc, fc, lr0, sigma, color.0, color.2 (``HeadLayout``
-    of ``csrc/render.cu`` and ``csrc/render_l0.cu``)."""
+    of ``csrc/render.cu``, ``csrc/render_l0.cu`` and
+    ``csrc/layer_render.cu``). A head without view-direction aggregation
+    (the composite's) gives zeros for view_fc, which then adds relu(0) = 0
+    to every view's features."""
     agg = head.agg
-    layers = [agg.view_fc[0], agg.global_fc[0], agg.agg_w_fc[0], agg.fc[0],
-              head.lr0[0], head.sigma[0], head.color[0], head.color[2]]
-    return torch.cat([t.reshape(-1) for lin in layers
-                      for t in (lin.weight, lin.bias)]).to(torch.float32)
+    layers = [agg.global_fc[0], agg.agg_w_fc[0], agg.fc[0], head.lr0[0],
+              head.sigma[0], head.color[0], head.color[2]]
+    if head.viewdir_agg:
+        view = [agg.view_fc[0].weight, agg.view_fc[0].bias]
+    else:
+        w = agg.global_fc[0].weight
+        view = [w.new_zeros(head.feat_ch * 4), w.new_zeros(head.feat_ch)]
+    return torch.cat([t.reshape(-1) for t in view]
+                     + [t.reshape(-1) for lin in layers
+                        for t in (lin.weight, lin.bias)]).to(torch.float32)
 
 
 def render_rays_plain(world_xyz: torch.Tensor, uvd: torch.Tensor,

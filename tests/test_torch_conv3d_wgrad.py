@@ -36,6 +36,7 @@ from enerf_tpu_torch.ops.kernels import _build
 from enerf_tpu_torch.ops.kernels import conv3d_wgrad as kwg
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+from enerf_tpu_torch.ops.kernels import layer_render as klr
 from enerf_tpu_torch.ops.kernels import render as krender
 from enerf_tpu_torch.train import create_train_state, make_train_step
 from tests.torch_threads import torch_threads_share  # noqa: F401 (autouse)
@@ -209,6 +210,7 @@ def test_plan_covers_rows_and_tiles():
     ("depth_regression", "enerf_depth_regression", kdr),
     ("render", "enerf_render_rays", krender),
     ("render_l0", "enerf_render_rays_l0", krender),
+    ("layer_render", "enerf_layer_render", klr),
 ])
 def test_argtypes_match_the_c_signature(source, symbol, wrapper):
     """Each wrapper binds its C function with one ctypes type a parameter

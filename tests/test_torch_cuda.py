@@ -26,6 +26,7 @@ from enerf_tpu_torch.ops.depth import init_depth_values
 from enerf_tpu_torch.ops.ibr import unpreprocess
 from enerf_tpu_torch.ops.kernels import cost_volume as kcv
 from enerf_tpu_torch.ops.kernels import depth_regression as kdr
+from enerf_tpu_torch.ops.kernels import layer_render as klr
 from enerf_tpu_torch.ops.kernels import render as krender
 from enerf_tpu_torch.ops.rays import build_rays, sample_along_depth
 
@@ -139,6 +140,7 @@ def _plain_path(monkeypatch):
     monkeypatch.setattr(enerf_mod, "render_rays", krender.render_rays_plain)
     monkeypatch.setattr(depth_mod, "kernel_depth_regression",
                         kdr.depth_regression_plain)
+    monkeypatch.setattr(klr, "layer_render", klr.layer_render_plain)
 
 
 @pytest.mark.cuda
@@ -169,10 +171,10 @@ def test_variant_frame_kernel_vs_plain_path(cuda, monkeypatch, variant):
         cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
             cfg.enerf, fg_bbox_hw=(64, 64)))
         batch = make_composite_batch(cfg, H=Hs, W=Ws)
-        per_frame = (4, 0, 4)
+        per_frame = (4, 0, 4, 1)
     model = et.build_model(cfg, seed=3)
     counts = lambda: (kcv.launches, krender.launches["render"],  # noqa: E731
-                      kdr.launches)
+                      kdr.launches, klr.launches)[:len(per_frame)]
     before = counts()
     out = et.render(model, batch)
     assert tuple(a - b for a, b in zip(counts(), before)) == per_frame
@@ -595,13 +597,14 @@ def test_bf16_frame_kernel_vs_plain_path(cuda, monkeypatch, variant):
         cfg = dataclasses.replace(cfg, enerf=dataclasses.replace(
             cfg.enerf, fg_bbox_hw=(64, 64)))
         batch = make_composite_batch(cfg, H=Hs, W=Ws)
-        per_frame = (4, 0, 4)
+        per_frame = (4, 0, 4, 1)
     model = et.build_model(dataclasses.replace(cfg, compute_dtype="bfloat16"),
                            seed=3)
     f32_counts = lambda: (kcv.launches, krender.launches["render"],  # noqa: E731
-                          kdr.launches)
+                          kdr.launches, klr.launches)
     counts = lambda: (kcv.launches_bf16,  # noqa: E731
-                      krender.launches_bf16["render"], kdr.launches_mixed)
+                      krender.launches_bf16["render"], kdr.launches_mixed,
+                      klr.launches_bf16)[:len(per_frame)]
     before, before32 = counts(), f32_counts()
     out = et.render(model, batch)
     assert tuple(a - b for a, b in zip(counts(), before)) == per_frame
@@ -835,3 +838,125 @@ def test_train_step_3d_wgrad_on_card(cuda, monkeypatch):
     ref, other, got = grads(plain[0]), grads(plain[1]), grads(model)
     assert gap(got, ref) <= max(3 * gap(other, ref), 1e-5)
     assert float(got @ ref / (got.norm() * ref.norm())) > 0.999
+
+
+# The outdoor_composite cell's limits of ``correct``
+# (benchmark/traffic/outdoor_composite.json): colour gaps absolute, depth
+# gaps over the background's far - near; a tenth of each 99th-percentile
+# limit and a fifth of each median one: a tenth of the two median limits
+# (3e-8, 6e-8) is one float32 rounding step of a colour in [0.25, 0.5)
+# and less than one of the scene's depths over its range, and a sum taken
+# in another order than cuBLAS's moves about half the values by a step
+# (the plain version against the cell's reference reads up to 7.3e-8 of
+# the depth range)
+LAYER_RENDER_TOL = {"rgb_p50": 6e-8, "rgb_p99": 3e-6, "rgb_win_p99": 5e-6,
+                    "depth_p50": 1.2e-7, "depth_win_p99": 3e-7,
+                    "weights_max": 1e-6}
+
+
+def _layer_render_call(monkeypatch, slots, n_src, xy, dtype="float32"):
+    """The layered render's call of one frame of the outdoor_composite
+    cell's scene (benchmark/scene_outdoor.py: 768x1024, a 512x256 fg
+    window), recorded from the model's forward on the card: ``slots``
+    source views, the first ``n_src`` real (view_mask), the window's origin
+    ``xy`` at full resolution, or the scene's where None. Returns (args,
+    kwargs, the kernel's output, the bg far - near)."""
+    import json
+    from pathlib import Path
+
+    import enerf_tpu_torch as et
+    from benchmark import scene_outdoor
+    from enerf_tpu_torch.config import composite_eval_config
+
+    bench = Path(__file__).resolve().parents[1] / "benchmark"
+    cell = json.loads((bench / "configs/enerf_outdoor.json").read_text())
+    traffic = json.loads(
+        (bench / "traffic/outdoor_composite.json").read_text())
+    cell["source_views"], traffic["name"] = slots, "outdoor_composite"
+    b = scene_outdoor.make_frames(cell, traffic, 20 + slots, "cuda", 1)[0]
+    b["view_mask"][:, n_src:] = 0.0
+    if xy is not None:
+        b["bbox"][0, 0, :2] = torch.tensor(xy, dtype=torch.float32)
+    cfg = composite_eval_config()
+    cfg = dataclasses.replace(
+        cfg, compute_dtype=dtype, enerf=dataclasses.replace(
+            cfg.enerf, fg_bbox_hw=tuple(cell["enerf"]["fg_bbox_hw"])))
+    calls = []
+    wrapper = klr.layer_render
+
+    def record(*args, **kw):
+        out = wrapper(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    monkeypatch.setattr(klr, "layer_render", record)
+    before = (klr.launches, klr.launches_bf16)
+    et.render(et.build_model(cfg, seed=3), b)
+    bf16 = dtype == "bfloat16"
+    assert (klr.launches, klr.launches_bf16) == (before[0] + (not bf16),
+                                                 before[1] + bf16)
+    assert len(calls) == 1
+    nf = b["near_far"][0, -1]
+    return calls[0] + (float(nf[1] - nf[0]),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,n_src,xy,dtype", [
+    (3, 3, None, "float32"),           # the cell's S and window
+    (2, 2, None, "float32"),
+    (4, 4, None, "float32"),
+    (2, 1, None, "float32"),           # ... each with a padded view
+    (3, 2, None, "float32"),
+    (4, 3, None, "float32"),
+    (3, 3, (0, 128), "float32"),       # the left, right, top, bottom edges
+    (3, 3, (900, 128), "float32"),
+    (3, 3, (384, 0), "float32"),
+    (3, 3, (384, 700), "float32"),
+    (3, 3, (-100, -60), "float32"),    # a negative origin
+    (3, 3, None, "bfloat16"),          # bf16 features (the bf16 mode)
+])
+def test_layer_render_kernel_matches_plain(cuda, monkeypatch, slots, n_src,
+                                           xy, dtype):
+    """The layered render kernel (csrc/layer_render.cu) vs its plain
+    version on the inputs of an outdoor_composite frame: colour and depth
+    gaps, over the frame and inside the window, within ``LAYER_RENDER_TOL``
+    of the cell's limits of ``correct``; weights within 1e-6."""
+    args, kw, out, depth_range = _layer_render_call(monkeypatch, slots,
+                                                    n_src, xy, dtype)
+    with torch.inference_mode():
+        ref = klr.layer_render_plain(*args, **kw)
+    win = args[2]
+    (hr, wr), (Hr, Wr) = win.hw, win.frame_hw
+    x0, y0 = (int(v) for v in win.xy0[0])
+    inside = torch.zeros(Hr, Wr, dtype=torch.bool, device=cuda)
+    inside[y0:y0 + hr, x0:x0 + wr] = True
+    inside = inside.reshape(-1)
+
+    def q(k, scale, pick=None, p=0.5):
+        d = (out[k][0] - ref[k][0]).abs().double() / scale
+        if pick is not None:
+            d = d[pick]
+        return float(torch.quantile(d.flatten(), p))
+
+    got = {"rgb_p50": q("rgb", 1.0), "rgb_p99": q("rgb", 1.0, p=0.99),
+           "rgb_win_p99": q("rgb", 1.0, inside, 0.99),
+           "depth_p50": q("depth", depth_range),
+           "depth_win_p99": q("depth", depth_range, inside, 0.99),
+           "weights_max": float((out["weights"] - ref["weights"]).abs().max())}
+    assert all(got[k] <= LAYER_RENDER_TOL[k] for k in got), got
+    # outside the window the fg slot is empty, as the paste leaves it
+    assert bool((out["weights"][0, ~inside, 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_layer_render_kernel_refuses_gradients(cuda, monkeypatch):
+    """On a CUDA input that requires a gradient the wrapper raises (the
+    kernel has no backward) and launches nothing."""
+    args, kw, _, _ = _layer_render_call(monkeypatch, 3, 3, None)
+    for lay in args[:2]:
+        lay.head.requires_grad_(False)
+    fg = args[0]._replace(feat=args[0].feat.clone().requires_grad_())
+    before = klr.launches
+    with pytest.raises(ValueError, match="no backward"):
+        klr.layer_render(fg, *args[1:], **kw)
+    assert klr.launches == before
